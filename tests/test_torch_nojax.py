@@ -1,0 +1,76 @@
+"""hinge_tpu_torch never imports jax, directly or through hinge_tpu, and
+the opt-in switches that would reach hinge_tpu's jax code raise."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "hinge_tpu_torch"
+
+
+def test_no_jax_import_statements():
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert offenders == []
+
+
+def test_filter_stage_runs_without_loading_jax(tmp_path):
+    """Import every module of the port, run the filter stage on the CPU
+    in a fresh interpreter, and check that jax never got loaded."""
+    code = f"""
+import importlib, pkgutil, sys
+import hinge_tpu_torch
+for m in pkgutil.walk_packages(hinge_tpu_torch.__path__, "hinge_tpu_torch."):
+    importlib.import_module(m.name)
+from hinge_tpu.config import nominal_config
+from hinge_tpu.data.simulator import SimParams, simulate
+from hinge_tpu_torch.stages.filter import run_filter
+_, _, rs, ov = simulate(SimParams(genome_len=20_000, coverage=10.0,
+                                  mean_read_len=4000, std_read_len=800,
+                                  seed=5))
+res = run_filter(rs, [ov], nominal_config(), out_prefix={str(tmp_path / 'F')!r},
+                 device="cpu")
+assert res.maskvec.shape == (rs.n_reads, 2)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("NOJAX_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX_OK" in r.stdout
+
+
+@pytest.mark.parametrize("switch, las", [
+    ("HINGE_SHARDED", True),       # filter's sharded profiles
+    ("HINGE_DEVICE_JOIN", False),  # the built-in overlapper's device join
+    ("HINGE_DEVICE_VOTE", True),   # consensus's device vote
+])
+def test_unported_switches_raise(switch, las, tmp_path, monkeypatch):
+    """Each opt-in switch that would reach hinge_tpu's jax code raises
+    NotImplementedError under the port instead of being ignored."""
+    from hinge_tpu.data.simulator import SimParams, simulate
+    from hinge_tpu.io.fasta import write_fasta
+    from hinge_tpu.io.las import write_las
+    from hinge_tpu_torch.pipeline import assemble
+
+    # the test_e2e_assembly.py dataset: it assembles, so consensus votes
+    _, _, rs, ov = simulate(SimParams(genome_len=50_000, coverage=18.0,
+                                      mean_read_len=5000, std_read_len=1000,
+                                      seed=21))
+    fasta = str(tmp_path / "r.fasta")
+    write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+    las_path = ""
+    if las:
+        las_path = str(tmp_path / "r.las")
+        write_las(las_path, ov)
+    monkeypatch.setenv(switch, "1")
+    with pytest.raises(NotImplementedError, match=switch):
+        assemble(fasta=fasta, las=las_path, workdir=str(tmp_path / "w"),
+                 log=lambda *a: None, device="cpu")
