@@ -17,10 +17,24 @@ and the exit code is nonzero:
 5. real size — assemble() on a simulated 4.6 Mb genome at 30x with 2%
              read errors (reads + .las overlaps), which must run through
              both kernels and yield a contig >= 0.9 of the genome; prints
-             stage times and peak device memory.
+             stage times and peak device memory;
+6. device join — on phase 5's reads, the port's device join
+             (overlap_base_records on cuda) must give records equal to
+             the C join's (hinge_tpu's map_reads_to_targets, half pairs)
+             on every column and trace byte; prints both walls, per-phase
+             times, blocks, hits and peak device memory.  Then the trim
+             lattice (ops/classify.trim_overlaps) on cuda must equal the
+             native trim on the maximal stage's rows of phase 5's .las
+             records; prints both times;
+7. fasta only — assemble() from the reads alone with HINGE_DEVICE_JOIN=1
+             and HINGE_DEVICE_VOTE=1, which must run the device join, the
+             device vote and both kernels and yield a contig >= 0.9 of the
+             genome; the consensus stage rerun on the same draft with the
+             native C vote must write a byte-equal X.consensus.fasta.
 
-Then one JSON line per kernel summary and, last, the device line
-{"ok": true, "device": {...}}.  Imports no jax.
+Then a JSON line of kernel summaries, a JSON line of the ported device
+programs' times and, last, the device line {"ok": true, "device": {...}}.
+Imports no jax.
 """
 
 import json
@@ -191,7 +205,34 @@ def phase_golden():
         f"({time.perf_counter() - t0:.3f}s)")
 
 
-def phase_real_size():
+def _zero(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def _stage_diff(before):
+    from hinge_tpu_torch.utils.log import timings
+
+    return {k: v - before.get(k, 0.0) for k, v in timings().items()
+            if v - before.get(k, 0.0) > 0}
+
+
+def _check_assembly(tag, res):
+    longest = max((len(s) for _, s in res["contigs"]), default=0)
+    log(f"[{tag}] {len(res['contigs'])} contigs, longest/genome "
+        f"{longest / GENOME_LEN:.4f}")
+    if not res["contigs"] or longest / GENOME_LEN < 0.9:
+        raise AssertionError(f"{tag}: assembly too short: longest {longest}")
+
+
+def _check_launches(tag, launches):
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{tag}: the main path never launched {name}")
+
+
+def phase_real_size(tmp):
     from hinge_tpu.data.simulator import SimParams, simulate
     from hinge_tpu.io.fasta import write_fasta
     from hinge_tpu.io.las import write_las
@@ -199,40 +240,219 @@ def phase_real_size():
     from hinge_tpu_torch.pipeline import assemble
     from hinge_tpu_torch.utils.log import timings
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        _, _, rs, ov = simulate(SimParams(genome_len=GENOME_LEN,
-                                          coverage=COVERAGE, seed=0,
-                                          **READ_ERRORS))
-        fasta, las = os.path.join(tmp, "reads.fasta"), os.path.join(tmp, "reads.las")
-        write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
-        write_las(las, ov)
-        log(f"[real] host set-up: simulated {rs.n_reads} reads, {ov.n} "
-            f"overlaps and wrote them in {time.perf_counter() - t0:.3f}s")
-        del rs, ov
+    t0 = time.perf_counter()
+    _, _, rs, ov = simulate(SimParams(genome_len=GENOME_LEN,
+                                      coverage=COVERAGE, seed=0,
+                                      **READ_ERRORS))
+    fasta, las = os.path.join(tmp, "reads.fasta"), os.path.join(tmp, "reads.las")
+    write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+    write_las(las, ov)
+    log(f"[real] host set-up: simulated {rs.n_reads} reads, {ov.n} "
+        f"overlaps and wrote them in {time.perf_counter() - t0:.3f}s")
 
-        for k in BN.launches:
-            BN.launches[k] = 0
+    _zero(BN.launches)
+    before = timings()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = assemble(fasta=fasta, las=las, workdir=os.path.join(tmp, "asm"),
+                   device="cuda", log=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(BN.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[real] assemble wall {wall:.3f}s; stages "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in _stage_diff(before).items()))
+    log(f"[real] peak device memory {peak} bytes; kernel launches {launches}")
+    _check_assembly("real", res)
+    _check_launches("real", launches)
+    return launches, rs, ov, fasta
+
+
+def _assert_stores_equal(a, b):
+    """tests/test_device_join.py's store equality."""
+    if a.n != b.n:
+        raise AssertionError(f"record count {a.n} != {b.n}")
+    for f in ("a_id", "b_id", "a_len", "b_len", "a_start", "a_end",
+              "b_start", "b_end", "rc", "tlen", "trace_off", "trace"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"device join differs from the C join: {f}")
+    if a.tspace != b.tspace:
+        raise AssertionError("tspace differs")
+
+
+def phase_device_join(rs):
+    """The port's device join vs the C join on phase 5's reads; two runs
+    of each, the C runs each computing their own minimizers."""
+    from hinge_tpu.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.overlap import device_join as DJ
+
+    os.environ.pop("HINGE_DEVICE_JOIN", None)
+    targets = [rs.get_bases(i) for i in range(rs.n_reads)]
+    c_walls, dev_walls, stats = [], [], {}
+    for run in range(2):
+        if hasattr(rs, "_minimizer_cache"):
+            del rs._minimizer_cache
+        t0 = time.perf_counter()
+        ref = map_reads_to_targets(targets, rs, half_pairs=True)
+        c_walls.append(time.perf_counter() - t0)
+
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = assemble(fasta=fasta, las=las, workdir=os.path.join(tmp, "asm"),
-                       device="cuda", log=lambda *a: None)
+        got = DJ.overlap_base_records(rs, device="cuda")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(BN.launches)
+        dev_walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        _assert_stores_equal(got, ref)
+    # a third device run, synchronised at every phase boundary
+    got = DJ.overlap_base_records(rs, device="cuda", stats=stats)
+    _assert_stores_equal(got, ref)
+    log(f"[join] {ref.n} half-pair records, equal to the C join on every "
+        f"column and trace byte ({len(ref.trace)} trace values)")
+    log(f"[join] C join wall {c_walls[0]:.3f}s, {c_walls[1]:.3f}s; device "
+        f"join wall {dev_walls[0]:.3f}s (first), {dev_walls[1]:.3f}s")
+    log("[join] per phase (CUDA-synchronised): " + ", ".join(
+        f"{k} {stats[k]:.3f}s" for k in
+        ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")))
+    log(f"[join] {stats['blocks']} blocks, {stats['hits']} half-pair seed "
+        f"hits; peak device memory {peak} bytes")
+    ops = [{"name": "device_join", "source": "hinge_tpu_torch/overlap/device_join.py",
+            "replaces": "hinge_tpu/overlap/device_join.py:677",
+            "ms": dev_walls[1] * 1e3, "c_ms": c_walls[1] * 1e3,
+            "equal": True, "peak_bytes": peak}]
+    ops += [{"name": f"device_join.{k}", "ms": stats[k] * 1e3}
+            for k in ("minimizer", "index", "p1", "p2", "p3", "p4")]
+    return ops
+
+
+def phase_trim(rs, ov):
+    """The trim lattice on cuda vs the native trim, on the maximal stage's
+    rows (non-self, top two per pair) with the filter's read masks."""
+    from hinge_tpu.config import nominal_config
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.ops import classify as CL
+    from hinge_tpu_torch.ops import pairs as TP
+    from hinge_tpu_torch.stages.filter import run_filter
+
+    fres = run_filter(rs, [ov], nominal_config(), device="cuda")
+    es = fres.maskvec[:, 0].astype(np.int32)
+    ee = fres.maskvec[:, 1].astype(np.int32)
+    sub = ov.take(np.nonzero(ov.a_id != ov.b_id)[0])
+    sub = sub.take(TP.top_k_per_pair(sub, 2))
+    masks = (es[sub.a_id], ee[sub.a_id], es[sub.b_id], ee[sub.b_id])
+    t0 = time.perf_counter()
+    native = TP._native_trim(sub, *masks, CL.TRIM_GRID)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    if native is None:
+        raise AssertionError("the native trim library is missing")
+    t0 = time.perf_counter()
+    got = TP._lattice_trim(sub, *masks, "cuda")
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for name, g, w in zip(("eams", "eame", "ebms", "ebme", "active"), got, native):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"trim lattice differs from the native trim: {name}")
+    tw = CL.build_trace_walk(sub)
+    seg_id, k_local, _ = CL.make_point_index(tw.npairs)
+    args = [to_device(np.asarray(a), "cuda") for a in (
+        sub.a_start, sub.a_end, sub.b_start, sub.b_end, sub.rc, *masks,
+        tw.npairs, tw.pair_off, tw.cum, seg_id, k_local)]
+    op_ms = _cuda_ms(lambda: CL.trim_overlaps(*args, tspace=CL.TRIM_GRID), 5)
+    log(f"[trim] {sub.n} rows, {len(seg_id)} lattice points: equal to the "
+        f"native trim; lattice op {op_ms:.4f} ms on cuda ({wall_ms:.3f} ms "
+        f"with host prep and copies), native trim {c_ms:.3f} ms")
+    return [{"name": "trim_lattice", "source": "hinge_tpu_torch/ops/classify.py",
+             "replaces": "hinge_tpu/ops/classify.py:126", "ms": op_ms,
+             "wall_ms": wall_ms, "c_ms": c_ms, "equal": True}]
+
+
+class _Timed:
+    """Wraps a module function and sums its wall seconds."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_fasta_only(tmp, fasta):
+    """assemble() from the reads alone with the device join and the device
+    vote, then the consensus stage again with the native C vote."""
+    from hinge_tpu.config import nominal_config
+    from hinge_tpu.data.overlaps import str_to_codes
+    from hinge_tpu.io.fasta import read_fasta
+    from hinge_tpu.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.ops import band_nw as BN
+    from hinge_tpu_torch.ops import consensus_vote as CV
+    from hinge_tpu_torch.overlap import device_join as DJ
+    from hinge_tpu_torch.pipeline import assemble
+    from hinge_tpu_torch.stages import consensus as SC
+    from hinge_tpu_torch.utils.log import timings
+
+    wd = os.path.join(tmp, "fasta_only")
+    os.environ["HINGE_DEVICE_JOIN"] = "1"
+    os.environ["HINGE_DEVICE_VOTE"] = "1"
+    try:
+        _zero(BN.launches, DJ.launches, CV.launches)
+        before = timings()
+        torch.cuda.reset_peak_memory_stats()
+        with _Timed(CV, "vote_tallies_device") as vote:
+            t0 = time.perf_counter()
+            res = assemble(fasta=fasta, workdir=wd, device="cuda",
+                           log=lambda *a: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {**BN.launches, **DJ.launches, **CV.launches}
+    finally:
+        os.environ.pop("HINGE_DEVICE_JOIN", None)
+        os.environ.pop("HINGE_DEVICE_VOTE", None)
     peak = torch.cuda.max_memory_allocated()
-    longest = max((len(s) for _, s in res["contigs"]), default=0)
-    log(f"[real] assemble wall {wall:.3f}s; stages "
-        + ", ".join(f"{k} {v:.3f}s" for k, v in timings().items()))
-    log(f"[real] peak device memory {peak} bytes; kernel launches {launches}")
-    log(f"[real] {len(res['contigs'])} contigs, longest/genome "
-        f"{longest / GENOME_LEN:.4f}")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path never launched {name}")
-    if not res["contigs"] or longest / GENOME_LEN < 0.9:
-        raise AssertionError(f"assembly too short: longest {longest}")
-    return launches
+    stages = _stage_diff(before)
+    log(f"[fasta] assemble wall {wall:.3f}s; stages "
+        + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items()))
+    log(f"[fasta] peak device memory {peak} bytes; launches {launches}")
+    _check_assembly("fasta", res)
+    _check_launches("fasta", launches)
+
+    # the same draft and alignments through the native C vote
+    rs = read_fasta(fasta)
+    aln = map_reads_to_targets([str_to_codes(s) for _, s in res["draft"]], rs)
+    native_fa = os.path.join(tmp, "native_vote.consensus.fasta")
+    with _Timed(SC, "_native_vote_tallies") as cvote:
+        t0 = time.perf_counter()
+        SC.run_consensus(res["draft"], rs, aln, nominal_config(),
+                         out_fasta=native_fa, device="cuda")
+        c_cons = time.perf_counter() - t0
+    with open(os.path.join(wd, "asm.consensus.fasta"), "rb") as f:
+        dev_bytes = f.read()
+    with open(native_fa, "rb") as f:
+        if f.read() != dev_bytes:
+            raise AssertionError("device-vote consensus differs from the "
+                                 "native-vote consensus")
+    log(f"[fasta] consensus FASTA ({len(dev_bytes)} bytes) byte-equal to the "
+        f"native-vote rerun; vote {vote.seconds:.3f}s on cuda over "
+        f"{vote.calls} contigs vs native C vote {cvote.seconds:.3f}s; "
+        f"consensus stage {stages.get('consensus', 0.0):.3f}s vs {c_cons:.3f}s")
+    ops = [{"name": "vote", "source": "hinge_tpu_torch/ops/consensus_vote.py",
+            "replaces": "hinge_tpu/ops/consensus_vote.py:168",
+            "ms": vote.seconds * 1e3, "c_ms": cvote.seconds * 1e3,
+            "equal": True}]
+    return launches, ops
 
 
 def main():
@@ -240,13 +460,22 @@ def main():
     phase_build()
     errs, times = phase_kernels()
     phase_golden()
-    launches = phase_real_size()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, rs, ov, fasta = phase_real_size(tmp)
+        ops = phase_device_join(rs)
+        ops += phase_trim(rs, ov)
+        del ov
+        fasta_launches, vote_ops = phase_fasta_only(tmp, fasta)
+        ops += vote_ops
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (src, tpu) in KERNELS.items()
     ]
+    log(f"[fasta] kernel launches of the fasta-only path: "
+        f"{ {k: fasta_launches[k] for k in KERNELS} }")
+    print(json.dumps({"device_ops": ops}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

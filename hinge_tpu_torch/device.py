@@ -15,8 +15,6 @@ import torch
 #: the ROADMAP queue item that ports it
 _UNPORTED_SWITCHES = {
     "HINGE_SHARDED": "ROADMAP queue item 6 (sharding/distributed with NCCL)",
-    "HINGE_DEVICE_JOIN": "ROADMAP queue item 5 (device_join)",
-    "HINGE_DEVICE_VOTE": "ROADMAP queue item 3 (consensus_vote)",
 }
 
 

@@ -1,10 +1,10 @@
 """Overlap classification and trace-point coordinate walks.
 
-Port of `hinge_tpu/ops/classify.py`.  `matching_position` is a torch op;
-the host helpers and constants are carried over unchanged because their
-module imports jax.  The trim lattice (`_lattice_points`, `trim_overlaps`,
-`add_types_asymmetric`), which runs only when the native trim library is
-missing, is not ported yet (ROADMAP queue item 2).
+Port of `hinge_tpu/ops/classify.py`.  `matching_position` and the trim
+lattice (`lattice_points`, `trim_overlaps`, `add_types_asymmetric`, which
+`ops/pairs.process_alignments` runs when the native trim library is
+missing) are torch ops on the tensors' device; the host helpers and
+constants are carried over unchanged because their module imports jax.
 """
 
 from __future__ import annotations
@@ -115,6 +115,123 @@ def add_types_asymmetric_np(
         ),
     )
     return t.astype(np.int32)
+
+
+def lattice_points(a_start, a_end, b_start, b_end, rc, npairs, pair_off,
+                   cum, seg_id, k_local, tspace: int):
+    """Flat lattice point coordinates (A_k, W_k) for all overlaps, int32.
+
+    seg_id/k_local index the flat point array (one overlap has npairs+1
+    points); W_k = w0 + sign * cum[pair_off + k - 1]."""
+    s = seg_id.long()
+    a0 = a_start[s]
+    npr = npairs[s]
+    interior = (torch.div(a0, tspace, rounding_mode="floor") + k_local) * tspace
+    A = torch.where(k_local == 0, a0,
+                    torch.where(k_local == npr, a_end[s], interior))
+    is_rc = rc[s] == 1
+    sign = torch.where(is_rc, -1, 1)
+    w0 = torch.where(is_rc, b_end[s], b_start[s])
+    wend = torch.where(is_rc, b_start[s], b_end[s])
+    # jax clamps out-of-range gathers; the value is used only when k > 0
+    cidx = torch.clamp(pair_off[s] + torch.clamp(k_local - 1, min=0), 0,
+                       max(cum.shape[0] - 1, 0))
+    csum = torch.where(k_local == 0, 0, cum[cidx]) if cum.numel() else \
+        torch.zeros_like(k_local)
+    W = torch.where(k_local == npr, wend, w0 + sign * csum)
+    return A.to(torch.int32), W.to(torch.int32)
+
+
+def trim_overlaps(a_start, a_end, b_start, b_end, rc,
+                  eff_a_read_start, eff_a_read_end, eff_b_read_start,
+                  eff_b_read_end, npairs, pair_off, cum, seg_id, k_local, *,
+                  tspace: int):
+    """Batched LOverlap::trim_overlap (LAInterface.cpp:4552-4683).
+
+    eff_*_read_* are the per-overlap read masks.  Returns
+    (eff_a_match_start, eff_a_match_end, eff_b_match_start,
+    eff_b_match_end, active); the first/last lattice point that satisfies
+    each predicate is a segment min/max (`scatter_reduce`)."""
+    n_ov = a_start.shape[0]
+    A, W = lattice_points(a_start, a_end, b_start, b_end, rc, npairs,
+                          pair_off, cum, seg_id, k_local, tspace)
+    s = seg_id.long()
+    rcs = rc[s] == 1
+    # start predicate: rc=0 -> A>=eas & W>=ebs ; rc=1 -> A>=eas & W<=ebe
+    start_ok = (A >= eff_a_read_start[s]) & torch.where(
+        rcs, W <= eff_b_read_end[s], W >= eff_b_read_start[s])
+    # end predicate:   rc=0 -> A<=eae & W<=ebe ; rc=1 -> A<=eae & W>=ebs
+    end_ok = (A <= eff_a_read_end[s]) & torch.where(
+        rcs, W >= eff_b_read_start[s], W <= eff_b_read_end[s])
+
+    BIG = 1 << 30
+    kl = k_local.long()
+    first_k = torch.full((n_ov,), BIG, dtype=torch.int64, device=A.device)
+    first_k.scatter_reduce_(0, s, torch.where(start_ok, kl, BIG), "amin")
+    last_k = torch.full((n_ov,), -1, dtype=torch.int64, device=A.device)
+    last_k.scatter_reduce_(0, s, torch.where(end_ok, kl, -1), "amax")
+    npr = npairs.long()
+    sidx = torch.where(first_k >= BIG, npr + 1, first_k)
+    eidx = torch.where(last_k < 0, 0, last_k)
+
+    # point offsets: pair_off + overlap index (each overlap adds one point)
+    pt_off = pair_off.long() + torch.arange(n_ov, device=A.device)
+    si = pt_off + torch.minimum(sidx, npr)
+    ei = pt_off + torch.minimum(eidx, npr)
+    sA, sW, eA, eW = A[si], W[si], A[ei], W[ei]
+
+    found_s = first_k < BIG
+    found_e = last_k >= 0
+    eff_a_ms = torch.where(found_s, sA, a_start)
+    eff_a_me = torch.where(found_e, eA, a_end)
+    # rc=0: start point carries (ams,bms), end point (ame,bme)
+    # rc=1: start point carries (ams,bme), end point (ame,bms)
+    is_rc = rc == 1
+    eff_b_ms = torch.where(is_rc, torch.where(found_e, eW, b_start),
+                           torch.where(found_s, sW, b_start))
+    eff_b_me = torch.where(is_rc, torch.where(found_s, sW, b_end),
+                           torch.where(found_e, eW, b_end))
+    active = sidx < eidx  # (LAInterface.cpp:4667-4670)
+    return eff_a_ms, eff_a_me, eff_b_ms, eff_b_me, active
+
+
+def add_types_asymmetric(
+    eff_a_match_start, eff_a_match_end, eff_b_match_start, eff_b_match_end,
+    eff_a_read_start, eff_a_read_end, eff_b_read_start, eff_b_read_end,
+    rc, max_overhang, min_overhang,
+) -> torch.Tensor:
+    """Batched LOverlap::AddTypesAsymmetric (LAInterface.cpp:4721-4806) as
+    a torch op, int32 MatchType codes."""
+    oal = eff_a_match_start - eff_a_read_start
+    oar = eff_a_read_end - eff_a_match_end
+    obl0 = eff_b_match_start - eff_b_read_start
+    obr0 = eff_b_read_end - eff_b_match_end
+    is_rc = rc == 1
+    obl = torch.where(is_rc, obr0, obl0)
+    obr = torch.where(is_rc, obl0, obr0)
+
+    c_bcovera = (torch.maximum(oal, oar) < max_overhang) & (torch.minimum(obl, obr) > min_overhang)
+    c_acoverb = (torch.maximum(obl, obr) < max_overhang) & (torch.minimum(oal, oar) > min_overhang)
+    c_internal = torch.minimum(oal, oar) > max_overhang
+    c_left = oal <= max_overhang
+    c_bwd = (obr <= max_overhang) & (obl >= max_overhang)
+    c_bwd_int = (obr >= max_overhang) & (obl >= max_overhang)
+    c_right = oar <= max_overhang
+    c_fwd = (obl <= max_overhang) & (obr >= max_overhang)
+    c_fwd_int = (obl >= max_overhang) & (obr >= max_overhang)
+
+    # the if/else-if cascade in priority order; the BACKWARD branch leaves
+    # UNDEFINED when neither sub-case fires, the FORWARD branch likewise
+    w = torch.where
+    t = w(c_bcovera, BCOVERA,
+          w(c_acoverb, ACOVERB,
+            w(c_internal, INTERNAL,
+              w(c_left,
+                w(c_bwd, BACKWARD, w(c_bwd_int, BACKWARD_INTERNAL, UNDEFINED)),
+                w(c_right,
+                  w(c_fwd, FORWARD, w(c_fwd_int, FORWARD_INTERNAL, UNDEFINED)),
+                  UNDEFINED)))))
+    return t.to(torch.int32)
 
 
 def matching_position(ov_idx, pos_a, a_start, a_end, b_start, b_end, rc,

@@ -76,7 +76,6 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
     from hinge_tpu.stages.clip import run_clip
     from hinge_tpu.stages.draft_path import run_draft_path
     from hinge_tpu.stages.gfa import run_gfa
-    from hinge_tpu_torch.device import refuse_unported
     from hinge_tpu_torch.stages.consensus import run_consensus
     from hinge_tpu_torch.stages.draft import run_draft
     from hinge_tpu_torch.stages.filter import run_filter
@@ -96,13 +95,12 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
         parts = [read_paf(paf)]
     else:
         # no overlapper output provided: run the built-in all-vs-all
-        # overlapper (host code shared with hinge_tpu)
-        from hinge_tpu.overlap.mapper import overlap_reads
+        # overlapper (the C join, or the device join with HINGE_DEVICE_JOIN=1)
+        from hinge_tpu_torch.overlap.mapper import overlap_reads
 
-        refuse_unported("HINGE_DEVICE_JOIN")
         t_ovl = time.time()
         with stage_timer("overlap"):
-            parts = [overlap_reads(rs, w=overlap_w)]
+            parts = [overlap_reads(rs, w=overlap_w, device=device)]
         log(f"[assemble] built-in overlapper: {parts[0].n} overlaps "
             f"({time.time()-t_ovl:.1f}s)")
     has_db = bool(las) or not paf
@@ -119,7 +117,7 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
     eff_e = fres.maskvec[:, 1].astype(np.int32)
     with stage_timer("maximal"):
         mres = run_maximal(rs, parts, cfg, eff_s, eff_e, out_prefix=p,
-                           has_db=has_db)
+                           has_db=has_db, device=device)
     log(f"[assemble] maximal: {int(mres.active.sum())}/{rs.n_reads} reads "
         f"({time.time()-t:.1f}s)")
 
@@ -166,7 +164,8 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
     with stage_timer("map"):
         aln = map_reads_to_targets(targets, rs)
     with stage_timer("consensus"):
-        cons = run_consensus(contigs, rs, aln, cfg, out_fasta=cons_fasta)
+        cons = run_consensus(contigs, rs, aln, cfg, out_fasta=cons_fasta,
+                             device=device)
     log(f"[assemble] consensus: {len(cons)} contigs ({time.time()-t:.1f}s)")
 
     with stage_timer("gfa"):

@@ -12,13 +12,13 @@ over {A,C,G,T,-} plus a single-insertion track (:162-269):
 * deletion when '-' wins the column.
 
 The vote accumulations are scatter-adds over (position, base), done by the
-native C vote (numpy without the toolchain).
+native C vote (numpy without the toolchain); HINGE_DEVICE_VOTE=1 runs them
+as torch ops on the run's device (`ops/consensus_vote.py`).
 
 Port of `hinge_tpu/stages/consensus.py`, host code carried over: that
 module imports `ops.batch_align` (jax) for a trace-realignment branch its
 one caller never takes (it passes only rows with tlen <= 0), so the port
-drops that branch.  The device vote (HINGE_DEVICE_VOTE=1) is not ported
-yet and raises.
+drops that branch.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from hinge_tpu.config import Config
 from hinge_tpu.data.overlaps import OverlapStore, ReadStore, revcomp_codes
 from hinge_tpu.ops import dalign_trace as DT
 from hinge_tpu.ops import myers as MY
-from hinge_tpu_torch.device import refuse_unported
 from hinge_tpu_torch.ops.pairs import _libstdcxx_orders
 
 GAP = MY.GAP
@@ -196,13 +195,20 @@ def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
             ins_score.astype(np.int32), ins_scores.reshape(alen, 5).astype(np.int32))
 
 
-def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen):
+def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen, device):
     """Native C single-pass vote when the toolchain is available, else
-    numpy (both integer-exact); HINGE_DEVICE_VOTE=np forces numpy."""
+    numpy; HINGE_DEVICE_VOTE=1 runs the vote on `device`
+    (ops/consensus_vote.py), HINGE_DEVICE_VOTE=np forces numpy.  All three
+    are integer-exact."""
     import os
 
-    refuse_unported("HINGE_DEVICE_VOTE")
-    if os.environ.get("HINGE_DEVICE_VOTE", "auto") != "np":
+    mode = os.environ.get("HINGE_DEVICE_VOTE", "auto")
+    if mode == "1":
+        from hinge_tpu_torch.ops.consensus_vote import vote_tallies_device
+
+        return vote_tallies_device(flat_a, flat_b, seg_len, pos0, alen,
+                                   device=device)
+    if mode != "np":
         native = _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen)
         if native is not None:
             return native
@@ -287,6 +293,8 @@ def run_consensus(
     cfg: Config,
     out_fasta: Optional[str] = None,
     band: int = 300,
+    *,
+    device,
 ) -> List[Tuple[str, str]]:
     min_len = cfg.consensus.min_length
     n_contigs = len(contigs)
@@ -332,11 +340,10 @@ def run_consensus(
         # pooled column vote, fully segment-vectorized in bounded chunks:
         # (pos, base) pairs of every read at once, then ONE bincount per
         # tally per chunk (the per-read Python loop was 54% of consensus
-        # wall in the host profile).  On a TPU backend the vote runs as a
-        # device scatter-add kernel (ops/consensus_vote.py, bit-identical);
-        # HINGE_DEVICE_VOTE=1/0 forces/disables it.
+        # wall in the host profile).  HINGE_DEVICE_VOTE=1 runs it as device
+        # scatter-adds (ops/consensus_vote.py, bit-identical).
         scores, cov, ins_score, ins_scores = _tallies_dispatch(
-            flat_a, flat_b, seg_len, pos0, alen)
+            flat_a, flat_b, seg_len, pos0, alen, device)
 
         # emission (consensus.cpp:231-269), vectorized: each draft position
         # emits 0-2 bytes (optional insertion + base-or-deletion); build the

@@ -91,6 +91,8 @@ def get_alignment(
     eff_end: np.ndarray,
     cfg: Config,
     has_db: bool = True,
+    *,
+    device,
 ) -> List[Matches]:
     f, lay = cfg.filter, cfg.layout
     per_part = []
@@ -106,7 +108,8 @@ def get_alignment(
         k = 2 if lay.use_two_matches else 1
         cand = _top_k(sub, k)
         pa = process_alignments(
-            sub, cand, eff_start, eff_end, f.aln_threshold, f.theta, f.theta2, trim=has_db
+            sub, cand, eff_start, eff_end, f.aln_threshold, f.theta, f.theta2,
+            trim=has_db, device=device,
         )
         fwd: Dict[int, List[int]] = {}
         bwd: Dict[int, List[int]] = {}
@@ -248,7 +251,8 @@ def run_layout(
                 garbage.append(i)
             active[i] = False
 
-    matches = get_alignment(parts, active, eff_start, eff_end, cfg, has_db)
+    matches = get_alignment(parts, active, eff_start, eff_end, cfg, has_db,
+                            device=device)
 
     # hinges_vec: (pos, type, active); killed = repeats not surviving as hinges
     hinges_vec: Dict[int, List[List[int]]] = {}

@@ -1,8 +1,9 @@
 """Stage 2 — maximal-read selection (contained-read removal).
 
 Port of `hinge_tpu/stages/maximal.py` (reference `src/maximal/maximal.cpp`)
-with its imports swapped: the per-pair top-2 selection, the native trim
-and the containment sweep are host code, so this stage takes no device.
+with its imports swapped: the per-pair top-2 selection and the
+containment sweep are host code; the trim runs in the native library, or
+as the trim lattice on the stage's device when that library is missing.
 Outputs X.max and X.contained.txt.
 """
 
@@ -69,6 +70,8 @@ def run_maximal(
     eff_end: np.ndarray,
     out_prefix: Optional[str] = None,
     has_db: bool = True,
+    *,
+    device,
 ) -> MaximalResult:
     f = cfg.filter
     active = (eff_end - eff_start) >= f.length_threshold  # maximal.cpp:541-548
@@ -88,7 +91,7 @@ def run_maximal(
         cand = _top_k(sub, k)
         pa = process_alignments(
             sub, cand, eff_start, eff_end,
-            f.aln_threshold, f.theta, f.theta2, trim=has_db,
+            f.aln_threshold, f.theta, f.theta2, trim=has_db, device=device,
         )
 
         a_ids = sub.a_id[cand]

@@ -20,14 +20,25 @@ def test_no_jax_import_statements():
     assert offenders == []
 
 
+#: every subpackage of the port, so that a missing __init__.py (which
+#: walk_packages would silently skip) fails the import walk below
+SUBPACKAGES = ("ops", "overlap", "stages", "utils")
+
+
 def test_filter_stage_runs_without_loading_jax(tmp_path):
     """Import every module of the port, run the filter stage on the CPU
     in a fresh interpreter, and check that jax never got loaded."""
     code = f"""
 import importlib, pkgutil, sys
 import hinge_tpu_torch
-for m in pkgutil.walk_packages(hinge_tpu_torch.__path__, "hinge_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in
+         pkgutil.walk_packages(hinge_tpu_torch.__path__, "hinge_tpu_torch.")]
+for sub in {SUBPACKAGES!r}:
+    assert "hinge_tpu_torch." + sub in names, sub
+assert "hinge_tpu_torch.overlap.device_join" in names
+assert "hinge_tpu_torch.overlap.mapper" in names
+for name in names:
+    importlib.import_module(name)
 from hinge_tpu.config import nominal_config
 from hinge_tpu.data.simulator import SimParams, simulate
 from hinge_tpu_torch.stages.filter import run_filter
@@ -47,14 +58,42 @@ print("NOJAX_OK")
     assert "NOJAX_OK" in r.stdout
 
 
+def test_fasta_only_device_path_runs_without_loading_jax(tmp_path):
+    """A fresh interpreter runs the fasta-only assembly on the CPU with the
+    device join and the device vote, and never loads jax."""
+    code = f"""
+import os, sys
+os.environ["HINGE_DEVICE_JOIN"] = "1"
+os.environ["HINGE_DEVICE_VOTE"] = "1"
+from hinge_tpu.data.simulator import SimParams, simulate
+from hinge_tpu.io.fasta import write_fasta
+from hinge_tpu_torch.pipeline import assemble
+_, _, rs, _ = simulate(SimParams(genome_len=50_000, coverage=18.0,
+                                 mean_read_len=5000, std_read_len=1000,
+                                 seed=21))
+fasta = {str(tmp_path / 'r.fasta')!r}
+write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+res = assemble(fasta=fasta, workdir={str(tmp_path / 'w')!r},
+               log=lambda *a: None, device="cpu")
+assert res["contigs"]
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("NOJAX_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX_OK" in r.stdout
+
+
 @pytest.mark.parametrize("switch, las", [
     ("HINGE_SHARDED", True),       # filter's sharded profiles
-    ("HINGE_DEVICE_JOIN", False),  # the built-in overlapper's device join
-    ("HINGE_DEVICE_VOTE", True),   # consensus's device vote
 ])
 def test_unported_switches_raise(switch, las, tmp_path, monkeypatch):
     """Each opt-in switch that would reach hinge_tpu's jax code raises
-    NotImplementedError under the port instead of being ignored."""
+    NotImplementedError under the port instead of being ignored.
+    HINGE_DEVICE_JOIN and HINGE_DEVICE_VOTE are ported: tests/
+    test_torch_slice.py runs them against hinge_tpu."""
     from hinge_tpu.data.simulator import SimParams, simulate
     from hinge_tpu.io.fasta import write_fasta
     from hinge_tpu.io.las import write_las

@@ -8,6 +8,9 @@
   byte-equal to hinge_tpu's.
 - On a smaller noisy dataset, with the band-NW aligner forced on both
   sides (HINGE_FAST_ALIGN=1), X.draft.fasta is byte-equal too.
+- Fasta-only input (the built-in overlapper), with HINGE_DEVICE_JOIN=1,
+  HINGE_DEVICE_VOTE=1 or both on both sides and HINGE_PARITY_ALIGN=1:
+  X.consensus.fasta and X_consensus.gfa are byte-equal to hinge_tpu's.
 - Without a card, assemble() with its default device raises.
 """
 
@@ -39,6 +42,13 @@ def write_inputs(tmp, params):
     return fasta, las
 
 
+def write_fasta_only(tmp, params):
+    _, _, rs, _ = simulate(params)
+    fasta = str(tmp / "reads.fasta")
+    write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+    return fasta
+
+
 def assemble_both(tmp, fasta, las):
     """hinge_tpu's and the port's assemble() on the same inputs; returns
     the two workdirs."""
@@ -63,6 +73,26 @@ def test_assemble_matches_hinge_tpu_parity_pinned(tmp_path, monkeypatch):
     fasta, las = write_inputs(tmp_path, E2E)
     ref, port = assemble_both(tmp_path, fasta, las)
     for name in OUTPUTS:
+        want = read_bytes(os.path.join(ref, name))
+        assert len(want) > 1000, name
+        assert read_bytes(os.path.join(port, name)) == want, name
+
+
+@pytest.mark.parametrize("switches", [
+    ("HINGE_DEVICE_JOIN",),
+    ("HINGE_DEVICE_VOTE",),
+    ("HINGE_DEVICE_JOIN", "HINGE_DEVICE_VOTE"),
+], ids=["join", "vote", "join+vote"])
+def test_fasta_only_device_switches_match_hinge_tpu(switches, tmp_path,
+                                                    monkeypatch):
+    """The device join and the device vote under the same switches on both
+    sides: the port's consensus and GFA equal hinge_tpu's."""
+    monkeypatch.setenv("HINGE_PARITY_ALIGN", "1")
+    for name in switches:
+        monkeypatch.setenv(name, "1")
+    fasta = write_fasta_only(tmp_path, E2E)
+    ref, port = assemble_both(tmp_path, fasta, "")
+    for name in OUTPUTS[1:]:
         want = read_bytes(os.path.join(ref, name))
         assert len(want) > 1000, name
         assert read_bytes(os.path.join(port, name)) == want, name
@@ -100,3 +130,22 @@ def test_cli_assemble_on_cpu(tmp_path, capsys):
                  str(wd), "--device", "cpu", "--timings"]) == 0
     assert (wd / "asm.consensus.fasta").stat().st_size > 1000
     assert "[timing] draft:" in capsys.readouterr().out
+
+
+def test_cli_assemble_fasta_only_device_switches(tmp_path, monkeypatch):
+    """`cli assemble` on fasta-only input with both device switches writes
+    the consensus that the port's default (C join, C vote) path writes."""
+    from hinge_tpu_torch.cli import main
+    from hinge_tpu_torch.pipeline import assemble
+
+    fasta = write_fasta_only(tmp_path, E2E)
+    assemble(fasta=fasta, workdir=str(tmp_path / "c"), log=lambda *a: None,
+             device="cpu")
+    monkeypatch.setenv("HINGE_DEVICE_JOIN", "1")
+    monkeypatch.setenv("HINGE_DEVICE_VOTE", "1")
+    assert main(["assemble", "--fasta", fasta, "--workdir",
+                 str(tmp_path / "dev"), "--device", "cpu"]) == 0
+    for name in OUTPUTS[1:]:
+        want = read_bytes(str(tmp_path / "c" / name))
+        assert len(want) > 1000, name
+        assert read_bytes(str(tmp_path / "dev" / name)) == want, name

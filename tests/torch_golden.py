@@ -30,7 +30,8 @@ def build(tmpdir: str, device) -> str:
     fres = run_filter(rs, [ov], cfg, out_prefix=prefix, device=device)
     eff_s = fres.maskvec[:, 0].astype(np.int32)
     eff_e = fres.maskvec[:, 1].astype(np.int32)
-    mres = run_maximal(rs, [ov], cfg, eff_s, eff_e, out_prefix=prefix)
+    mres = run_maximal(rs, [ov], cfg, eff_s, eff_e, out_prefix=prefix,
+                       device=device)
     run_layout(
         rs, [ov], cfg, eff_s, eff_e, mres.active,
         load_marked(prefix + ".repeat.txt"), load_marked(prefix + ".hinges.txt"),
