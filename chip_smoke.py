@@ -8,19 +8,27 @@ and the exit code is nonzero:
 1. device  — a CUDA card must be present; prints its name and the
              `nvidia-smi` name/power-limit line;
 2. build   — nvcc builds the kernels from hinge_tpu_torch/csrc;
-3. kernels — band_fill and row_traceback on ~2048 seeded windows
-             (700-1100 bp, 1-15% error, plus edge cases) must be
-             bit-equal to their plain torch twins on the same CUDA
-             tensors; prints kernel and twin times (CUDA events);
+3. kernels — band_fill and row_traceback on 2048 seeded windows
+             (700-1100 bp, 1-15% error, plus edge cases), all-left
+             traceback rows and four ~12 kb windows (the 32-bit fill) must
+             be bit-equal to their plain torch twins on the same CUDA
+             tensors; prints kernel, previous kernel and twin times (CUDA
+             events) with each kernel's bound, and both kernels' time
+             per 2048 windows at 2048, 4096 and 8192 windows per launch.
+             The previous kernels (commit PARENT, before the redesign)
+             are built from git history or from `--parent DIR`, and are
+             left out when neither has them;
 4. golden  — the port's golden build on the card writes the 11
              tests/golden/ files byte for byte;
 5. real size — assemble() on a simulated 4.6 Mb genome at 30x with 2%
              read errors (reads + .las overlaps), which must run through
              both kernels and yield a contig >= 0.9 of the genome; prints
-             stage times and peak device memory;
+             stage times and peak device memory.  Then its largest band-NW
+             block (the launch size and the lengths of the main path) is
+             checked and timed as in phase 3;
 6. device join — on phase 5's reads, the port's device join
              (overlap_base_records on cuda) must give records equal to
-             the C join's (hinge_tpu's map_reads_to_targets, half pairs)
+             the C join's (map_reads_to_targets, half pairs)
              on every column and trace byte; prints both walls, per-phase
              times, blocks, hits and peak device memory.  Then the trim
              lattice (ops/classify.trim_overlaps) on cuda must equal the
@@ -32,8 +40,10 @@ and the exit code is nonzero:
              genome; the consensus stage rerun on the same draft with the
              native C vote must write a byte-equal X.consensus.fasta.
 
-Then a JSON line of kernel summaries, a JSON line of the ported device
-programs' times and, last, the device line {"ok": true, "device": {...}}.
+Then a JSON line of the ported device programs' times, a JSON line of
+kernel summaries (times on phase 5's largest block, bound, share,
+launches and windows per launch of phase 5, phase 3's numbers beside
+them) and, last, the device line {"ok": true, "device": {...}}.
 Imports no jax.
 """
 
@@ -100,10 +110,10 @@ def _noisy_copy(rng, t, err):
     return vals[np.stack([keep, ins], 1).reshape(-1)].astype(np.uint8)
 
 
-def _windows(seed=0):
+def _windows(seed=0, count=N_WINDOWS):
     rng = np.random.default_rng(seed)
     qs, ts = [], []
-    for _ in range(N_WINDOWS - 3):
+    for _ in range(count - 3):
         t = rng.integers(0, 4, int(rng.integers(700, 1101))).astype(np.uint8)
         q = _noisy_copy(rng, t, float(rng.uniform(0.01, 0.15)))
         qs.append(q[: len(t) + 126])
@@ -132,13 +142,110 @@ def _max_abs_err(got, want):
                if g.numel() else 0 for g, w in zip(got, want))
 
 
-def phase_kernels():
-    """Kernels vs twins on the same CUDA tensors at the main-path shape."""
-    from hinge_tpu_torch.device import to_device
-    from hinge_tpu_torch.ops import band_nw as BN
+BN_BW = 256
+#: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
+#: 32-bit integer operations/s (132 SMs x 64 INT32 lanes x 1.98 GHz)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+#: integer operations a band cell needs (sub compare, diag add, up add,
+#: min, e - k, prefix min, + k, min); a traceback cell (k <= k_e, move != 2,
+#: max)
+FILL_OPS_PER_CELL = 8
+TB_OPS_PER_CELL = 3
 
-    dev = torch.device("cuda")
-    qs, ts = _windows()
+
+def _bound(nbytes, nops):
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, nops / INT32_OPS_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def fill_bound(m, n, mrows):
+    """Least time for band_fill on these inputs: q and t bytes read once,
+    the moves written once; every band cell computed."""
+    B = int(m.numel())
+    cells = B * mrows * BN_BW
+    nbytes = int(m.sum()) + int(n.sum()) + 8 * B + cells
+    return _bound(nbytes, FILL_OPS_PER_CELL * cells)
+
+
+def traceback_bound(m, mrows):
+    """Least time for row_traceback: the active rows' moves read once,
+    cnts/mv0s/j_rem written once; one pass over each active row's cells."""
+    B = int(m.numel())
+    active = int(m.clamp(0, mrows).sum())
+    nbytes = active * BN_BW + 2 * B * mrows + 12 * B
+    return _bound(nbytes, TB_OPS_PER_CELL * active * BN_BW)
+
+PARENT = "c8c124ed9147a5b1b503950838dd258193d9d71e"
+
+
+def _parent_sources(tmp):
+    """The previous kernel sources (commit PARENT, before the redesign), from
+    --parent DIR or from git history; None when neither has them."""
+    names = ("band_fill.cu", "row_traceback.cu")
+    if "--parent" in sys.argv:
+        d = sys.argv[sys.argv.index("--parent") + 1]
+        return [os.path.join(d, f) for f in names]
+    out = []
+    for f in names:
+        r = subprocess.run(["git", "show", f"{PARENT}:hinge_tpu_torch/csrc/{f}"],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            return None
+        path = os.path.join(tmp, f)
+        with open(path, "w") as fh:
+            fh.write(r.stdout)
+        out.append(path)
+    return out
+
+
+class ParentKernels:
+    """The previous band_fill and row_traceback, built from their sources into a
+    scratch directory, for the A/B in the same process.  Not part of the
+    port."""
+
+    def __init__(self, tmp):
+        import ctypes
+
+        from hinge_tpu_torch.ops import _build
+
+        srcs = _parent_sources(tmp)
+        self.ok = srcs is not None
+        if not self.ok:
+            return
+        libs = _build.compile_sources(srcs, os.path.join(tmp, "parent_build"))
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        self.fill_fn = ctypes.CDLL(libs["band_fill"]).hinge_band_fill
+        self.fill_fn.argtypes = [vp, ll, vp, ll, vp, vp, vp, i, i, vp]
+        self.tb_fn = ctypes.CDLL(libs["row_traceback"]).hinge_row_traceback
+        self.tb_fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp]
+
+    def fill(self, q, t, m, n, mrows):
+        moves = torch.empty((q.shape[0], mrows, BN_BW), dtype=torch.int8,
+                            device=q.device)
+        err = self.fill_fn(q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
+                           m.data_ptr(), n.data_ptr(), moves.data_ptr(),
+                           q.shape[0], mrows, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous band_fill launch failed: {err}")
+        return moves
+
+    def traceback(self, moves, m, n):
+        B, mrows, _ = moves.shape
+        out = (torch.empty((B, mrows), dtype=torch.uint8, device=moves.device),
+               torch.empty((B, mrows), dtype=torch.int8, device=moves.device),
+               torch.empty((B,), dtype=torch.int32, device=moves.device))
+        err = self.tb_fn(moves.data_ptr(), m.data_ptr(), n.data_ptr(),
+                         *(o.data_ptr() for o in out), B, mrows,
+                         torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous row_traceback launch failed: {err}")
+        return out
+
+
+def _pack(qs, ts, dev):
+    from hinge_tpu_torch.device import to_device
+
     m = np.array([len(q) for q in qs], np.int32)
     n = np.array([len(t) for t in ts], np.int32)
     qc = np.zeros((len(qs), m.max()), np.uint8)
@@ -147,24 +254,80 @@ def phase_kernels():
         qc[w, : m[w]] = qs[w]
         tc[w, : n[w]] = ts[w]
     q, t, dm, dn = (to_device(a, dev) for a in (qc, tc, m, n))
-    mrows = int(m.max())
-    log(f"[kernels] {len(qs)} windows, m {m.min()}..{m.max()}, "
-        f"moves ({len(qs)}, {mrows}, {BN.BW}) int8")
+    return q, t, dm, dn, int(m.max())
 
-    moves = BN.band_fill(q, t, dm, dn, mrows=mrows)
-    moves_ref = BN.band_fill_ref(q, t, dm, dn, mrows)
+
+def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
+    """Both kernels bit-equal to their twins on one block, then the times
+    of the kernels, the previous kernels (when built) and the twins, CUDA events
+    on the same tensors.  Returns (errors, times) keyed by kernel."""
+    from hinge_tpu_torch.ops import band_nw as BN
+
+    moves = BN.band_fill(q, t, m, n, mrows=mrows)
+    moves_ref = BN.band_fill_ref(q, t, m, n, mrows)
     torch.cuda.synchronize()
-    fill_err = _max_abs_err([moves], [moves_ref])
     if not torch.equal(moves, moves_ref):
         bad = (moves != moves_ref).nonzero()[:5].tolist()
-        raise AssertionError(f"band_fill differs from its twin at {bad}")
-    tb = BN.row_traceback(moves, dm, dn)
-    tb_ref = BN.row_traceback_ref(moves, dm, dn)
+        raise AssertionError(f"{tag}: band_fill differs from its twin at {bad}")
+    fill_err = _max_abs_err([moves], [moves_ref])
+    del moves_ref
+    tb = BN.row_traceback(moves, m, n)
+    tb_ref = BN.row_traceback_ref(moves, m, n)
     torch.cuda.synchronize()
-    tb_err = _max_abs_err(tb, tb_ref)
     for name, g, w in zip(("cnts", "mv0s", "j_rem"), tb, tb_ref):
         if not torch.equal(g, w):
-            raise AssertionError(f"row_traceback {name} differs from its twin")
+            raise AssertionError(f"{tag}: row_traceback {name} differs from its twin")
+    tb_err = _max_abs_err(tb, tb_ref)
+    times = {"band_fill": {}, "row_traceback": {}}
+    for rnd in range(2):  # kernel, previous, previous, kernel
+        order = ("new", "prev") if rnd == 0 else ("prev", "new")
+        for who in order:
+            if who == "prev" and not parent.ok:
+                continue
+            # the launch without the wrapper's length check, whose host
+            # sync would put an idle gap between the timed launches
+            f = (lambda: BN.launch_band_fill(q, t, m, n, mrows)) if who == "new" \
+                else (lambda: parent.fill(q, t, m, n, mrows))
+            g = (lambda: BN.row_traceback(moves, m, n)) if who == "new" \
+                else (lambda: parent.traceback(moves, m, n))
+            times["band_fill"].setdefault(who, []).append(_cuda_ms(f, 10))
+            times["row_traceback"].setdefault(who, []).append(_cuda_ms(g, 10))
+    if parent.ok:
+        if not torch.equal(parent.fill(q, t, m, n, mrows), moves):
+            raise AssertionError(f"{tag}: the previous band_fill differs")
+    times["band_fill"]["plain"] = [
+        _cuda_ms(lambda: BN.band_fill_ref(q, t, m, n, mrows), twin_reps)]
+    times["row_traceback"]["plain"] = [
+        _cuda_ms(lambda: BN.row_traceback_ref(moves, m, n), twin_reps)]
+    bounds = {"band_fill": fill_bound(m, n, mrows),
+              "row_traceback": traceback_bound(m, mrows)}
+    summary = {}
+    for name, d in times.items():
+        ms = min(d["new"])
+        b_ms, b_by = bounds[name]
+        summary[name] = {"ms": ms, "plain_ms": d["plain"][0],
+                         "prev_ms": min(d["prev"]) if "prev" in d else None,
+                         "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+        prev = (f"previous kernel {summary[name]['prev_ms']:.4f} ms ({d['prev']})"
+               if "prev" in d else "previous kernel not measured (sources absent)")
+        log(f"[{tag}] {name}: bit-equal to its twin; kernel {ms:.4f} ms "
+            f"({d['new']}), {prev}, plain torch {d['plain'][0]:.4f} ms; bound "
+            f"{b_ms:.4f} ms by {b_by}, share {b_ms / ms:.3f}")
+    return {"band_fill": fill_err, "row_traceback": tb_err}, summary
+
+
+def phase_kernels(parent):
+    """Kernels vs twins on the same CUDA tensors at the phase-3 shape, the
+    all-left rows, and long windows that take the 32-bit fill."""
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.ops import band_nw as BN
+
+    dev = torch.device("cuda")
+    qs, ts = _windows()
+    q, t, dm, dn, mrows = _pack(qs, ts, dev)
+    log(f"[kernels] {len(qs)} windows, m {int(dm.min())}..{mrows}, "
+        f"moves ({len(qs)}, {mrows}, {BN.BW}) int8")
+    errs, summary = check_block("kernels", q, t, dm, dn, mrows, parent)
 
     # rows with no non-left lane up to k_e (top = -1; cnt wraps at 256)
     rng = np.random.default_rng(1)
@@ -176,20 +339,71 @@ def phase_kernels():
     smv, sdm, sdn = (to_device(a, dev) for a in (syn, sm, sn))
     got, want = BN.row_traceback(smv, sdm, sdn), BN.row_traceback_ref(smv, sdm, sdn)
     torch.cuda.synchronize()
-    tb_err = max(tb_err, _max_abs_err(got, want))
+    errs["row_traceback"] = max(errs["row_traceback"], _max_abs_err(got, want))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("row_traceback differs from its twin on all-left rows")
+    log("[kernels] row_traceback bit-equal to its twin on all-left rows")
 
-    times = {
-        "band_fill": (_cuda_ms(lambda: BN.band_fill(q, t, dm, dn, mrows=mrows), 10),
-                      _cuda_ms(lambda: BN.band_fill_ref(q, t, dm, dn, mrows), 2)),
-        "row_traceback": (_cuda_ms(lambda: BN.row_traceback(moves, dm, dn), 10),
-                          _cuda_ms(lambda: BN.row_traceback_ref(moves, dm, dn), 2)),
-    }
-    for name, (k_ms, p_ms) in times.items():
-        log(f"[kernels] {name}: bit-equal to its twin; kernel {k_ms:.4f} ms, "
-            f"plain torch {p_ms:.4f} ms")
-    return {"band_fill": fill_err, "row_traceback": tb_err}, times
+    # windows past the 16-bit fill's range take the 32-bit fill
+    lq, lt = [], []
+    for w in range(4):
+        tt = rng.integers(0, 4, 12_300 + 20 * w).astype(np.uint8)
+        lq.append(_noisy_copy(rng, tt, 0.05)[: len(tt) + 100])
+        lt.append(tt)
+    q2, t2, m2, n2, mr2 = _pack(lq, lt, dev)
+    assert mr2 + t2.shape[1] > BN.NARROW_MAX
+    got = BN.band_fill(q2, t2, m2, n2, mrows=mr2)
+    want = BN.band_fill_ref(q2, t2, m2, n2, mr2)
+    torch.cuda.synchronize()
+    errs["band_fill"] = max(errs["band_fill"], _max_abs_err([got], [want]))
+    if not torch.equal(got, want):
+        raise AssertionError("the 32-bit band_fill differs from its twin")
+    log(f"[kernels] band_fill bit-equal to its twin on {len(lq)} windows of "
+        f"{int(m2.min())}..{mr2} rows (mrows + Lt {mr2 + t2.shape[1]} > "
+        f"{BN.NARROW_MAX}: the 32-bit fill)")
+    del q2, t2, got, want
+    launch_sizes(dev)
+    return errs, summary
+
+
+def launch_sizes(dev):
+    """Kernel time per 2048 windows at several launch sizes, same window
+    mix: what band_nw.MAX_BATCH was chosen by."""
+    from hinge_tpu_torch.ops import band_nw as BN
+
+    for count in (2048, 4096, 8192):
+        q, t, m, n, mrows = _pack(*_windows(5, count), dev)
+        fill = _cuda_ms(lambda: BN.launch_band_fill(q, t, m, n, mrows), 5)
+        moves = BN.launch_band_fill(q, t, m, n, mrows)
+        tb = _cuda_ms(lambda: BN.row_traceback(moves, m, n), 5)
+        log(f"[launch] {count} windows per launch: band_fill {fill:.4f} ms "
+            f"({fill * 2048 / count:.4f} per 2048), row_traceback {tb:.4f} ms "
+            f"({tb * 2048 / count:.4f} per 2048)")
+        del moves
+
+
+class _BlockSpy:
+    """Counts the windows band_fill gets and keeps the inputs of the
+    largest block (cloned, outside any timing)."""
+
+    def __init__(self, module):
+        self.module, self.fn = module, module.band_fill
+        self.windows = 0
+        self.block = None
+
+    def __enter__(self):
+        def spy(q, t, m, n, mrows):
+            self.windows += q.shape[0]
+            if self.block is None or q.shape[0] * mrows > \
+                    self.block[0].shape[0] * self.block[4]:
+                self.block = (q.clone(), t.clone(), m.clone(), n.clone(), mrows)
+            return self.fn(q, t, m, n, mrows=mrows)
+
+        self.module.band_fill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.band_fill = self.fn
 
 
 def phase_golden():
@@ -233,9 +447,9 @@ def _check_launches(tag, launches):
 
 
 def phase_real_size(tmp):
-    from hinge_tpu.data.simulator import SimParams, simulate
-    from hinge_tpu.io.fasta import write_fasta
-    from hinge_tpu.io.las import write_las
+    from hinge_tpu_torch.data.simulator import SimParams, simulate
+    from hinge_tpu_torch.io.fasta import write_fasta
+    from hinge_tpu_torch.io.las import write_las
     from hinge_tpu_torch.ops import band_nw as BN
     from hinge_tpu_torch.pipeline import assemble
     from hinge_tpu_torch.utils.log import timings
@@ -253,19 +467,22 @@ def phase_real_size(tmp):
     _zero(BN.launches)
     before = timings()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = assemble(fasta=fasta, las=las, workdir=os.path.join(tmp, "asm"),
-                   device="cuda", log=lambda *a: None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _BlockSpy(BN) as spy:
+        t0 = time.perf_counter()
+        res = assemble(fasta=fasta, las=las, workdir=os.path.join(tmp, "asm"),
+                       device="cuda", log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(BN.launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"[real] assemble wall {wall:.3f}s; stages "
         + ", ".join(f"{k} {v:.3f}s" for k, v in _stage_diff(before).items()))
-    log(f"[real] peak device memory {peak} bytes; kernel launches {launches}")
+    log(f"[real] peak device memory {peak} bytes; kernel launches {launches}; "
+        f"{spy.windows} band-NW windows, launch size {BN.MAX_BATCH}")
     _check_assembly("real", res)
     _check_launches("real", launches)
-    return launches, rs, ov, fasta
+    per_launch = spy.windows / max(launches["band_fill"], 1)
+    return launches, per_launch, spy.block, rs, ov, fasta
 
 
 def _assert_stores_equal(a, b):
@@ -283,7 +500,7 @@ def _assert_stores_equal(a, b):
 def phase_device_join(rs):
     """The port's device join vs the C join on phase 5's reads; two runs
     of each, the C runs each computing their own minimizers."""
-    from hinge_tpu.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
     from hinge_tpu_torch.overlap import device_join as DJ
 
     os.environ.pop("HINGE_DEVICE_JOIN", None)
@@ -328,7 +545,7 @@ def phase_device_join(rs):
 def phase_trim(rs, ov):
     """The trim lattice on cuda vs the native trim, on the maximal stage's
     rows (non-self, top two per pair) with the filter's read masks."""
-    from hinge_tpu.config import nominal_config
+    from hinge_tpu_torch.config import nominal_config
     from hinge_tpu_torch.device import to_device
     from hinge_tpu_torch.ops import classify as CL
     from hinge_tpu_torch.ops import pairs as TP
@@ -393,10 +610,10 @@ class _Timed:
 def phase_fasta_only(tmp, fasta):
     """assemble() from the reads alone with the device join and the device
     vote, then the consensus stage again with the native C vote."""
-    from hinge_tpu.config import nominal_config
-    from hinge_tpu.data.overlaps import str_to_codes
-    from hinge_tpu.io.fasta import read_fasta
-    from hinge_tpu.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.config import nominal_config
+    from hinge_tpu_torch.data.overlaps import str_to_codes
+    from hinge_tpu_torch.io.fasta import read_fasta
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
     from hinge_tpu_torch.ops import band_nw as BN
     from hinge_tpu_torch.ops import consensus_vote as CV
     from hinge_tpu_torch.overlap import device_join as DJ
@@ -455,13 +672,25 @@ def phase_fasta_only(tmp, fasta):
     return launches, ops
 
 
+def phase_main_block(block, parent):
+    """The largest band-NW block of phase 5 (the launch size and the
+    window lengths of the main path): kernels vs twins, times, bounds."""
+    q, t, m, n, mrows = block
+    log(f"[block] phase 5's largest block: {q.shape[0]} windows, m "
+        f"{int(m.min())}..{mrows}, moves {q.shape[0] * mrows * BN_BW} bytes")
+    return check_block("block", q, t, m, n, mrows, parent, twin_reps=1)
+
+
 def main():
     phase_device()
     phase_build()
-    errs, times = phase_kernels()
-    phase_golden()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, rs, ov, fasta = phase_real_size(tmp)
+        parent = ParentKernels(tmp)
+        errs, p3 = phase_kernels(parent)
+        phase_golden()
+        launches, per_launch, block, rs, ov, fasta = phase_real_size(tmp)
+        block_errs, main = phase_main_block(block, parent)
+        del block
         ops = phase_device_join(rs)
         ops += phase_trim(rs, ov)
         del ov
@@ -469,8 +698,11 @@ def main():
         ops += vote_ops
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": launches[name], "windows_per_launch": per_launch,
+         "max_abs_err": max(errs[name], block_errs[name]),
+         **main[name], "library_ms": None,
+         "phase3": {k: p3[name][k] for k in ("ms", "prev_ms", "plain_ms",
+                                              "bound_ms", "bound_by", "share")}}
         for name, (src, tpu) in KERNELS.items()
     ]
     log(f"[fasta] kernel launches of the fasta-only path: "

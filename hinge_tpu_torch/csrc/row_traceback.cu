@@ -4,7 +4,7 @@
 // hinge_tpu/ops/pallas_band_nw.py::_row_traceback_pallas (body :247,
 // pallas_call at :279); the plain torch twin is
 // hinge_tpu_torch/ops/band_nw.py::row_traceback_ref.  Outputs are
-// bit-identical to both.
+// bit-identical to both for move codes 0..3 (what band_fill writes).
 //
 // Every optimal path visits each DP row once, so walking rows
 // r = min(m, mrows)-1 .. 0 with the current column j of the window
@@ -14,16 +14,20 @@
 //   j    -= cnt + (mv0 == 0)
 // cnt is stored as uint8 (256 wraps to 0), rows r >= m store zeros.
 //
-// What bounds it on this card: one dependent 256-byte row read per step
-// (j of row r decides what row r-1 needs), so it is bound by the load
-// latency of ~1k serial steps per window, not by bandwidth (512 MiB of
-// moves per 2048-window block, read once).
-// What the design does about it: one warp per window; each lane reads
-// 8 move bytes of the row as one 8-byte word (a coalesced 256-byte warp
-// load), reduces its cells in registers and the warp combines them with
-// one __reduce_max_sync.  j stays in a register; the moves stay in
-// HBM/L2 (a 1k-row window holds 256 KB of moves, more than shared
-// memory).
+// What bounds it on this card: the bytes are the active rows' moves, read
+// once (256 B a row), so the floor is that over HBM bandwidth.  But j of
+// row r decides what row r-1 needs, so each window is a serial chain of
+// ~1k steps, and a kernel that waits for each row's load on that chain is
+// bound by the load latency instead.
+// What the design does about it: a row's load does not depend on j, only
+// its mask does.  So one warp per window (8 cells a lane, one 8-byte word)
+// loads the next 16 rows into registers while it resolves the current 16:
+// the loads leave the chain.  What stays on it per row is short: the
+// lane's non-left cells are a bit mask computed from the word off the
+// chain, k_e masks it, the highest set bit (one clz) gives the lane's
+// candidate, and one __reduce_max_sync the warp's.  The per-row outputs
+// are buffered across the lanes (lane r % 32 keeps row r) and written as
+// 32 coalesced bytes every 32 rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,7 +38,18 @@ constexpr int BW = 256;
 constexpr int HB = BW / 2;
 constexpr int PER = BW / 32;
 constexpr int WARPS = 4;
+constexpr int GROUP = 16;  // rows in flight ahead of the chain
 constexpr unsigned FULL = 0xffffffffu;
+
+// bit p set where byte p of w (a move code 0..3) is not 2 (left)
+__device__ __forceinline__ unsigned nonleft_bits(uint64_t w) {
+    const uint64_t x = w ^ 0x0202020202020202ull;
+    const uint64_t y = (x | (x >> 1)) & 0x0101010101010101ull;
+    // gather the bytes' low bits: b0 + 2 b1 + 4 b2 + 8 b3 lands in byte 3
+    const unsigned lo = (static_cast<unsigned>(y) * 0x01020408u) >> 24;
+    const unsigned hi = (static_cast<unsigned>(y >> 32) * 0x01020408u) >> 24;
+    return (lo & 0xfu) | ((hi & 0xfu) << 4);
+}
 
 __global__ void __launch_bounds__(WARPS * 32)
 row_traceback_kernel(const int8_t* __restrict__ moves,
@@ -48,34 +63,63 @@ row_traceback_kernel(const int8_t* __restrict__ moves,
     const long long row0 = static_cast<long long>(b) * mrows;
     const uint64_t* mv = reinterpret_cast<const uint64_t*>(moves + row0 * BW) + lane;
     const int mb = m[b];
-    const int active_rows = mb < mrows ? mb : mrows;
-    for (int r = (active_rows > 0 ? active_rows : 0) + lane; r < mrows; r += 32) {
+    const int active_rows = mb < 0 ? 0 : (mb < mrows ? mb : mrows);
+    for (int r = active_rows + lane; r < mrows; r += 32) {
         cnts[row0 + r] = 0;
         mv0s[row0 + r] = 0;
     }
 
     int j = n[b];
     const int k0 = lane * PER;
-    for (int r = active_rows - 1; r >= 0; --r) {
-        const uint64_t w = __ldg(mv + static_cast<long long>(r) * (BW / 8));
-        int k_e = j - (r + 1) + HB;
-        k_e = k_e < 0 ? 0 : (k_e > BW - 1 ? BW - 1 : k_e);
-        int best = -1;
+    unsigned my_cnt = 0, my_mv0 = 0;  // row (r & ~31) + lane of this chunk
+    uint64_t cur[GROUP];
+    int r = active_rows - 1;
 #pragma unroll
-        for (int p = 0; p < PER; ++p) {
-            const int code = static_cast<int8_t>((w >> (8 * p)) & 0xff);
-            const int k = k0 + p;
-            if (k <= k_e && code != 2) best = max(best, k * 4 + code);
+    for (int g = 0; g < GROUP; ++g)
+        cur[g] = (r - g >= 0) ? __ldg(mv + static_cast<long long>(r - g) * (BW / 8)) : 0;
+    while (r >= 0) {
+        uint64_t nxt[GROUP];
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+            const int rr = r - GROUP - g;
+            nxt[g] = rr >= 0 ? __ldg(mv + static_cast<long long>(rr) * (BW / 8)) : 0;
         }
-        const int top = __reduce_max_sync(FULL, best);
-        const int kstop = top >> 2;
-        const int mv0 = top & 3;
-        const int cnt = k_e - kstop;
-        j -= cnt + (mv0 == 0 ? 1 : 0);
-        if (lane == 0) {
-            cnts[row0 + r] = static_cast<uint8_t>(cnt & 0xff);
-            mv0s[row0 + r] = static_cast<int8_t>(mv0);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+            const int rr = r - g;
+            if (rr < 0) break;
+            const uint64_t w = cur[g];
+            const unsigned nl = nonleft_bits(w);
+            int k_e = j - (rr + 1) + HB;
+            k_e = k_e < 0 ? 0 : (k_e > BW - 1 ? BW - 1 : k_e);
+            int sh = k_e - k0 + 1;
+            sh = sh < 0 ? 0 : (sh > PER ? PER : sh);
+            const unsigned mm = nl & ((1u << sh) - 1u);
+            int best = -1;
+            if (mm) {
+                const int p = 31 - __clz(mm);
+                best = (k0 + p) * 4 + static_cast<int>((w >> (8 * p)) & 3u);
+            }
+            const int top = __reduce_max_sync(FULL, best);
+            const int kstop = top >> 2;
+            const int mv0 = top & 3;
+            const int cnt = k_e - kstop;
+            j -= cnt + (mv0 == 0 ? 1 : 0);
+            if (lane == (rr & 31)) {
+                my_cnt = static_cast<unsigned>(cnt) & 0xffu;
+                my_mv0 = static_cast<unsigned>(mv0);
+            }
+            if ((rr & 31) == 0) {  // the chunk rr .. rr + 31 is done
+                if (rr + lane < mrows) {
+                    cnts[row0 + rr + lane] = static_cast<uint8_t>(my_cnt);
+                    mv0s[row0 + rr + lane] = static_cast<int8_t>(my_mv0);
+                }
+                my_cnt = my_mv0 = 0;
+            }
         }
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) cur[g] = nxt[g];
+        r -= GROUP;
     }
     if (lane == 0) j_rem[b] = j;
 }

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels of `hinge_tpu_torch/csrc`.
 
-At first use, `nvcc` compiles every `csrc/*.cu` for sm_90a into one shared
-library with a plain C interface under `hinge_tpu_torch/build/` (listed in
-.gitignore), and `ctypes` binds it.  Nothing is built at import time, and
-a failed build raises: there is no fallback to another implementation.
+At first use, `nvcc` compiles each `csrc/*.cu` for sm_90a into a shared
+library of its own with a plain C interface under `hinge_tpu_torch/build/`
+(listed in .gitignore), one compiler process per source, all started
+together; `ctypes` binds them.  Nothing is built at import time, and a
+failed build raises: there is no fallback to another implementation.
 """
 
 from __future__ import annotations
@@ -15,17 +16,24 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libhinge_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: argument types of each exported entry point
+SIGNATURES = {
+    "hinge_band_fill": [_VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "hinge_row_traceback": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+}
+
 _lock = threading.Lock()
 _lib = None
-#: what the last build in this process did: seconds, command, ptxas report
+#: what the last build in this process did: seconds, commands, ptxas report
 build_info: dict = {}
 
 
@@ -38,46 +46,65 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-
-
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
-        return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
-
-
-def _compile() -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+def compile_sources(sources, build_dir: str) -> dict:
+    """Compile each source into `build_dir/lib<stem>.so`, skipping the
+    ones newer than their source, all nvcc processes at once.  Returns
+    {stem: library path}; records times and the ptxas report in
+    `build_info`."""
+    os.makedirs(build_dir, exist_ok=True)
+    libs, procs = {}, {}
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"hinge_tpu_torch: nvcc failed ({r.returncode}):\n"
-            f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)
-    build_info.update(seconds=time.perf_counter() - t0, cmd=" ".join(cmd),
-                      ptxas=r.stderr)
+    for src in sources:
+        stem = os.path.splitext(os.path.basename(src))[0]
+        lib = os.path.join(build_dir, f"lib{stem}.so")
+        libs[stem] = lib
+        if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        procs[stem] = (cmd, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    report, failed = [], []
+    for stem, (cmd, tmp, lib, p) in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, lib)
+        report.append(err)
+    if failed:
+        raise RuntimeError("hinge_tpu_torch: nvcc failed:\n" + "\n".join(failed))
+    if procs:
+        build_info.update(seconds=time.perf_counter() - t0,
+                          cmds=[" ".join(c) for c, *_ in procs.values()],
+                          ptxas="\n".join(report))
+    return libs
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The kernel library, compiled on first call when missing or older
-    than its sources."""
+def bind(libs: dict) -> types.SimpleNamespace:
+    """The entry points of SIGNATURES from the libraries of
+    `compile_sources`, with their ctypes argument types set."""
+    fns = {}
+    for path in libs.values():
+        lib = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+                fns[name] = fn
+    missing = set(SIGNATURES) - set(fns)
+    if missing:
+        raise RuntimeError(f"hinge_tpu_torch: kernels missing: {sorted(missing)}")
+    return types.SimpleNamespace(**fns)
+
+
+def load_kernels() -> types.SimpleNamespace:
+    """The kernel entry points, compiled on first call when missing or
+    older than their sources."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        if _stale():
-            _compile()
-        lib = ctypes.CDLL(LIB_PATH)
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.hinge_band_fill.argtypes = [vp, ll, vp, ll, vp, vp, vp, i, i, vp]
-        lib.hinge_band_fill.restype = i
-        lib.hinge_row_traceback.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp]
-        lib.hinge_row_traceback.restype = i
-        _lib = lib
+        if _lib is None:
+            _lib = bind(compile_sources(
+                sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))), BUILD_DIR))
         return _lib

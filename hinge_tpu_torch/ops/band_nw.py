@@ -5,7 +5,9 @@ regular-access band formulation).  Two kernels, each with a plain torch
 twin in this module:
 
 - `band_fill` (K1, csrc/band_fill.cu; twin `band_fill_ref`): int8 move
-  codes (B, mrows, 256), 0 diag, 1 up, 2 left, 3 invalid;
+  codes (B, mrows, 256), 0 diag, 1 up, 2 left, 3 invalid.  Blocks with
+  mrows + Lt <= NARROW_MAX run the 16-bit-cell kernel, longer ones the
+  32-bit-cell kernel of the same source;
 - `row_traceback` (K2, csrc/row_traceback.cu; twin `row_traceback_ref`):
   per-row left-run counts, terminating moves and the leading left
   columns.
@@ -23,7 +25,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu.ops.myers import align_full
+from hinge_tpu_torch.ops.myers import align_full
 from hinge_tpu_torch.device import to_device
 from hinge_tpu_torch.ops._build import load_kernels
 
@@ -32,6 +34,11 @@ BW = 256
 HB = BW // 2
 INF = 1 << 24
 I32 = torch.int32
+#: largest mrows + Lt of the 16-bit-cell fill: its finite costs (at most
+#: mrows + Lt) then stay below its INF of 0x7000 less the band width
+NARROW_MAX = 24576
+#: windows per band_fill / row_traceback launch in band_align_batch
+MAX_BATCH = 8192
 
 #: kernel launches per wrapper (a launch that compares a kernel with its
 #: twin counts too; callers reset the counts around the run they measure)
@@ -125,15 +132,24 @@ def band_fill(q, t, m, n, mrows: int) -> torch.Tensor:
     _check_lengths(q, t, m, n)
     if dev.type == "cpu":
         return band_fill_ref(q, t, m, n, mrows)
+    return launch_band_fill(q, t, m, n, mrows)
+
+
+def launch_band_fill(q, t, m, n, mrows: int) -> torch.Tensor:
+    """The K1 launch alone, for CUDA tensors that band_fill has checked:
+    no host synchronisation, so back-to-back calls time the kernel."""
+    dev = q.device
     lib, stream = _launch_on(dev)
     B = q.shape[0]
     moves = torch.empty((B, mrows, BW), dtype=torch.int8, device=dev)
     if B == 0 or mrows == 0:
         return moves
+    wide = int(mrows + t.shape[1] > NARROW_MAX)
     with torch.cuda.device(dev):
         err = lib.hinge_band_fill(
             q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
-            m.data_ptr(), n.data_ptr(), moves.data_ptr(), B, mrows, stream)
+            m.data_ptr(), n.data_ptr(), moves.data_ptr(), B, mrows, wide,
+            stream)
     if err:
         raise RuntimeError(f"band_fill kernel launch failed: cudaError {err}")
     launches["band_fill"] += 1
@@ -175,7 +191,8 @@ def row_traceback_ref(moves, m, n):
 def row_traceback(moves, m, n):
     """Traceback on the moves' device: the CUDA kernel for CUDA tensors,
     the plain twin for CPU tensors.  Arguments as for
-    `row_traceback_ref`."""
+    `row_traceback_ref`; the kernel reads move codes 0..3, as band_fill
+    writes them."""
     dev = moves.device
     _check("moves", moves, torch.int8, 3, dev)
     _check("m", m, I32, 1, dev)
@@ -259,7 +276,7 @@ def band_align_batch(
     ts: Sequence[np.ndarray],
     *,
     device,
-    max_batch: int = 2048,
+    max_batch: int = MAX_BATCH,
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Optimal banded global alignment rows (gap code 4) for a batch of
     windows, consuming both sequences entirely (align_full semantics).

@@ -91,7 +91,7 @@ def introsort_perm(keys: np.ndarray, descending: bool) -> np.ndarray:
     jax)."""
     import ctypes
 
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     keys = np.ascontiguousarray(keys, dtype=np.int64)
     if not descending:

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from hinge_tpu.data.overlaps import OverlapStore
+from hinge_tpu_torch.data.overlaps import OverlapStore
 from hinge_tpu_torch.device import to_device
 from hinge_tpu_torch.ops import classify as CL
 
@@ -82,7 +82,7 @@ def top_k_per_pair(ov: OverlapStore, k: int = 2) -> np.ndarray:
 def _libstdcxx_orders():
     """(umap_iter_order_batch, stdsort_desc_perm_batch) callables bound to
     numpy arrays, or None without the native library."""
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "umap_iter_order_batch"):
@@ -131,7 +131,7 @@ def _native_trim(sub: OverlapStore, ears, eare, ebrs, ebre, tspace: int):
     without the toolchain."""
     import ctypes
 
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "trim_overlaps_batch"):

@@ -41,9 +41,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from hinge_tpu.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu.overlap.device_join import BANDBITS, MAX_TID, _pack_codes
+from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
 from hinge_tpu_torch.device import to_device
+
+# copied from hinge_tpu/overlap/device_join.py (:61-62, :666-674)
+BANDBITS = 12          # band_rel field width in the 32-bit group key
+MAX_TID = 1 << 18      # key packs tid into 31-(1+BANDBITS) = 18 bits
 
 _I64 = torch.int64
 _SIGN = -(1 << 63)  # flips int64 order into uint64 order
@@ -109,6 +112,17 @@ def _pow2(x: int) -> int:
     while p < x:
         p *= 2
     return p
+
+
+def _pack_codes(rs: ReadStore) -> np.ndarray:
+    c = np.ascontiguousarray(rs.bases, dtype=np.uint8)
+    n = len(c)
+    pad = (-n) % 4
+    if pad:
+        c = np.concatenate([c, np.zeros(pad, np.uint8)])
+    quads = c.reshape(-1, 4)
+    return (quads[:, 0] | (quads[:, 1] << 2) | (quads[:, 2] << 4)
+            | (quads[:, 3] << 6)).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +468,7 @@ def overlap_base_records(
     key-packing gate fails (see join_gate).  `stats`, when given, gathers
     per-phase seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised),
     blocks and hits."""
-    from hinge_tpu.overlap import mapper as _mapper
+    from hinge_tpu_torch.overlap import mapper as _mapper
 
     if join_gate(rs, k, w, band_width) is not None:
         return None

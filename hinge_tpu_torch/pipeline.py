@@ -39,7 +39,7 @@ def assemble(
     Arguments as for hinge_tpu.pipeline.assemble; trace_dir, when set,
     wraps the run in a torch profiler trace written there.  Per-stage wall
     times accumulate in hinge_tpu_torch.utils.log.timings()."""
-    from hinge_tpu.config import Config, nominal_config
+    from hinge_tpu_torch.config import Config, nominal_config
     from hinge_tpu_torch.device import resolve_device
     from hinge_tpu_torch.utils.log import get_logger, stage_timer, torch_trace
 
@@ -67,15 +67,15 @@ def assemble(
 
 def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
                    log, stage_timer, overlap_w, device) -> dict:
-    from hinge_tpu.data.overlaps import str_to_codes
-    from hinge_tpu.io.dazz_db import read_db
-    from hinge_tpu.io.fasta import correct_head, read_fasta
-    from hinge_tpu.io.las import read_las
-    from hinge_tpu.io.paf import read_paf
-    from hinge_tpu.overlap.mapper import map_reads_to_targets
-    from hinge_tpu.stages.clip import run_clip
-    from hinge_tpu.stages.draft_path import run_draft_path
-    from hinge_tpu.stages.gfa import run_gfa
+    from hinge_tpu_torch.data.overlaps import str_to_codes
+    from hinge_tpu_torch.io.dazz_db import read_db
+    from hinge_tpu_torch.io.fasta import correct_head, read_fasta
+    from hinge_tpu_torch.io.las import read_las
+    from hinge_tpu_torch.io.paf import read_paf
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.stages.clip import run_clip
+    from hinge_tpu_torch.stages.draft_path import run_draft_path
+    from hinge_tpu_torch.stages.gfa import run_gfa
     from hinge_tpu_torch.stages.consensus import run_consensus
     from hinge_tpu_torch.stages.draft import run_draft
     from hinge_tpu_torch.stages.filter import run_filter
@@ -152,7 +152,7 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
     draft_fasta = p + ".draft.fasta"
     cons_fasta = p + ".consensus.fasta"
     if norevcomp:
-        from hinge_tpu.io.fasta import select_single_strand
+        from hinge_tpu_torch.io.fasta import select_single_strand
 
         draft_fasta = p + ".draft.norevcomp.fasta"
         select_single_strand(p + ".draft.fasta", draft_fasta, mode="even")

@@ -27,10 +27,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from hinge_tpu.config import Config
-from hinge_tpu.data.overlaps import OverlapStore, ReadStore, revcomp_codes
-from hinge_tpu.ops import dalign_trace as DT
-from hinge_tpu.ops import myers as MY
+from hinge_tpu_torch.config import Config
+from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore, revcomp_codes
+from hinge_tpu_torch.ops import dalign_trace as DT
+from hinge_tpu_torch.ops import myers as MY
 from hinge_tpu_torch.ops.pairs import _libstdcxx_orders
 
 GAP = MY.GAP
@@ -167,7 +167,7 @@ def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
     toolchain."""
     import ctypes
 
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "consensus_vote_batch"):
@@ -298,7 +298,7 @@ def run_consensus(
 ) -> List[Tuple[str, str]]:
     min_len = cfg.consensus.min_length
     n_contigs = len(contigs)
-    from hinge_tpu.data.overlaps import str_to_codes
+    from hinge_tpu_torch.data.overlaps import str_to_codes
 
     draft_codes = [str_to_codes(seq) for _, seq in contigs]
 

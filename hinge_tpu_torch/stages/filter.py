@@ -17,8 +17,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu.config import Config
-from hinge_tpu.data.overlaps import OverlapStore, ReadStore
+from hinge_tpu_torch.config import Config
+from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
 from hinge_tpu_torch.device import refuse_unported, to_device
 from hinge_tpu_torch.ops import coverage as C
 
@@ -366,7 +366,7 @@ def _native_coverage_lines(cov, ne, reso, r_begin):
     a list of lines, or None without the toolchain."""
     import ctypes
 
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "format_coverage_lines"):

@@ -32,8 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from hinge_tpu.config import Config
-from hinge_tpu.data.overlaps import OverlapStore, ReadStore
+from hinge_tpu_torch.config import Config
+from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
 from hinge_tpu_torch.device import to_device
 from hinge_tpu_torch.ops import classify as CL
 from hinge_tpu_torch.ops.pairs import (

@@ -14,8 +14,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from hinge_tpu.config import Config
-from hinge_tpu.data.overlaps import OverlapStore, ReadStore
+from hinge_tpu_torch.config import Config
+from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
 from hinge_tpu_torch.device import refuse_unported
 from hinge_tpu_torch.ops import classify as CL
 from hinge_tpu_torch.ops.pairs import process_alignments, top_k_per_pair
@@ -33,7 +33,7 @@ def _native_sweep(a_ids, b_ids, is_bcovera, active):
     the toolchain is unavailable (caller falls back to the Python loop)."""
     import ctypes
 
-    from hinge_tpu.native import get_lib
+    from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "containment_sweep"):

@@ -1,6 +1,8 @@
 """hinge_tpu_torch.overlap.device_join against the native C join and
 hinge_tpu's device join, on the CPU, tolerance 0 (every column, the trace
-offsets and the trace bytes).
+offsets and the trace bytes).  Each side gets its own ReadStore: the
+port's is carried over from hinge_tpu's simulator output by
+hinge_tpu_torch.data.carry.
 
 The workloads are tests/test_device_join.py's: 120 kb at 14x in one block
 and in blocks of a fifth of the bases, and a repeat-heavy 60 kb genome."""
@@ -13,9 +15,14 @@ from hinge_tpu.data.overlaps import ReadStore
 from hinge_tpu.data.simulator import SimParams, simulate
 from hinge_tpu.overlap import device_join as JDJ
 from hinge_tpu.overlap import mapper as M
+from hinge_tpu_torch.data import carry
 from hinge_tpu_torch.overlap import device_join as DJ
 from hinge_tpu_torch.overlap import mapper as TM
 from tests.test_device_join import _assert_stores_equal, _c_base_records
+
+
+def _port(rs):
+    return carry.read_store_from_arrays(vars(rs))
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +63,7 @@ def test_device_join_matches_c_join(workload, sim_mid, sim_repeat):
     ref = _c_base_records(rs)
     assert ref.n > 50
     stats = {}
-    got = DJ.overlap_base_records(rs, device="cpu", stats=stats, **kw)
+    got = DJ.overlap_base_records(_port(rs), device="cpu", stats=stats, **kw)
     assert stats["blocks"] >= (5 if workload == "five_blocks" else 1)
     _assert_stores_equal(got, ref)
 
@@ -65,7 +72,8 @@ def test_device_join_matches_hinge_tpu():
     rs = simulate(SimParams(genome_len=40_000, coverage=10, seed=3))[2]
     want = JDJ.overlap_base_records(rs)
     assert want is not None and want.n > 20
-    _assert_stores_equal(DJ.overlap_base_records(rs, device="cpu"), want)
+    _assert_stores_equal(DJ.overlap_base_records(_port(rs), device="cpu"),
+                         want)
 
 
 def _short_reads():
@@ -79,8 +87,8 @@ def test_gate_returns_none():
     as hinge_tpu's does."""
     rs = _short_reads()
     assert JDJ.overlap_base_records(rs) is None
-    assert DJ.overlap_base_records(rs, device="cpu") is None
-    assert "k + w" in DJ.join_gate(rs, 15, 12, 500)
+    assert DJ.overlap_base_records(_port(rs), device="cpu") is None
+    assert "k + w" in DJ.join_gate(_port(rs), 15, 12, 500)
 
 
 def test_switch_raises_on_gated_input(monkeypatch):
@@ -88,7 +96,7 @@ def test_switch_raises_on_gated_input(monkeypatch):
     never takes the C join."""
     monkeypatch.setenv("HINGE_DEVICE_JOIN", "1")
     with pytest.raises(ValueError, match="k \\+ w"):
-        TM.overlap_reads(_short_reads(), device="cpu")
+        TM.overlap_reads(_port(_short_reads()), device="cpu")
 
 
 def test_overlap_reads_device_matches_c(sim_mid, monkeypatch):
@@ -96,6 +104,7 @@ def test_overlap_reads_device_matches_c(sim_mid, monkeypatch):
     hinge_tpu's overlap_reads on the C join."""
     monkeypatch.delenv("HINGE_DEVICE_JOIN", raising=False)
     ref = M.overlap_reads(sim_mid)
-    _assert_stores_equal(TM.overlap_reads(sim_mid, device="cpu"), ref)
+    port_rs = _port(sim_mid)
+    _assert_stores_equal(TM.overlap_reads(port_rs, device="cpu"), ref)
     monkeypatch.setenv("HINGE_DEVICE_JOIN", "1")
-    _assert_stores_equal(TM.overlap_reads(sim_mid, device="cpu"), ref)
+    _assert_stores_equal(TM.overlap_reads(port_rs, device="cpu"), ref)

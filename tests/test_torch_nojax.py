@@ -1,5 +1,7 @@
-"""hinge_tpu_torch never imports jax, directly or through hinge_tpu, and
-the opt-in switches that would reach hinge_tpu's jax code raise."""
+"""hinge_tpu_torch stands alone: it imports neither jax nor hinge_tpu
+(it keeps its own copies of the jax-free modules it shares with
+hinge_tpu), and the opt-in switches whose device code is not ported
+raise."""
 
 import os
 import pathlib
@@ -20,9 +22,21 @@ def test_no_jax_import_statements():
     assert offenders == []
 
 
+def test_no_hinge_tpu_import_statements():
+    """No module of the port, nor chip_smoke.py, nor the port's golden
+    build imports hinge_tpu."""
+    pat = re.compile(r"^\s*(from|import)\s+hinge_tpu(\.|\s|$)", re.M)
+    files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+             ROOT / "tests" / "torch_golden.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if pat.search(p.read_text())]
+    assert offenders == []
+
+
 #: every subpackage of the port, so that a missing __init__.py (which
 #: walk_packages would silently skip) fails the import walk below
-SUBPACKAGES = ("ops", "overlap", "stages", "utils")
+SUBPACKAGES = ("data", "graph", "io", "native", "ops", "overlap", "stages",
+               "utils")
 
 
 def test_filter_stage_runs_without_loading_jax(tmp_path):
@@ -39,8 +53,8 @@ assert "hinge_tpu_torch.overlap.device_join" in names
 assert "hinge_tpu_torch.overlap.mapper" in names
 for name in names:
     importlib.import_module(name)
-from hinge_tpu.config import nominal_config
-from hinge_tpu.data.simulator import SimParams, simulate
+from hinge_tpu_torch.config import nominal_config
+from hinge_tpu_torch.data.simulator import SimParams, simulate
 from hinge_tpu_torch.stages.filter import run_filter
 _, _, rs, ov = simulate(SimParams(genome_len=20_000, coverage=10.0,
                                   mean_read_len=4000, std_read_len=800,
@@ -49,6 +63,7 @@ res = run_filter(rs, [ov], nominal_config(), out_prefix={str(tmp_path / 'F')!r},
                  device="cpu")
 assert res.maskvec.shape == (rs.n_reads, 2)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m.split(".")[0] == "hinge_tpu"]
 print("NOJAX_OK")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -65,8 +80,8 @@ def test_fasta_only_device_path_runs_without_loading_jax(tmp_path):
 import os, sys
 os.environ["HINGE_DEVICE_JOIN"] = "1"
 os.environ["HINGE_DEVICE_VOTE"] = "1"
-from hinge_tpu.data.simulator import SimParams, simulate
-from hinge_tpu.io.fasta import write_fasta
+from hinge_tpu_torch.data.simulator import SimParams, simulate
+from hinge_tpu_torch.io.fasta import write_fasta
 from hinge_tpu_torch.pipeline import assemble
 _, _, rs, _ = simulate(SimParams(genome_len=50_000, coverage=18.0,
                                  mean_read_len=5000, std_read_len=1000,
@@ -77,6 +92,7 @@ res = assemble(fasta=fasta, workdir={str(tmp_path / 'w')!r},
                log=lambda *a: None, device="cpu")
 assert res["contigs"]
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m.split(".")[0] == "hinge_tpu"]
 print("NOJAX_OK")
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -84,6 +100,43 @@ print("NOJAX_OK")
                        text=True, timeout=300, env=env, cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX_OK" in r.stdout
+
+
+def test_golden_build_and_assemble_without_hinge_tpu(tmp_path):
+    """A fresh interpreter imports every module of the port, runs the
+    port's golden build and a small assemble() from the port's own
+    simulator on the CPU, and never loads hinge_tpu or jax."""
+    code = f"""
+import importlib, pkgutil, sys
+import hinge_tpu_torch
+for m in pkgutil.walk_packages(hinge_tpu_torch.__path__, "hinge_tpu_torch."):
+    importlib.import_module(m.name)
+from tests import torch_golden
+torch_golden.build({str(tmp_path)!r}, device="cpu")
+assert torch_golden.mismatches({str(tmp_path)!r}) == []
+from hinge_tpu_torch.data.simulator import SimParams, simulate
+from hinge_tpu_torch.io.fasta import write_fasta
+from hinge_tpu_torch.io.las import write_las
+from hinge_tpu_torch.pipeline import assemble
+_, _, rs, ov = simulate(SimParams(genome_len=30_000, coverage=14.0,
+                                  mean_read_len=4000, std_read_len=900,
+                                  sub_rate=0.01, seed=77))
+fasta, las = {str(tmp_path / 'r.fasta')!r}, {str(tmp_path / 'r.las')!r}
+write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+write_las(las, ov)
+res = assemble(fasta=fasta, las=las, workdir={str(tmp_path / 'w')!r},
+               log=lambda *a: None, device="cpu")
+assert res["contigs"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("hinge_tpu", "jax"))
+assert loaded == [], loaded
+print("STANDALONE_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "STANDALONE_OK" in r.stdout
 
 
 @pytest.mark.parametrize("switch, las", [
@@ -94,9 +147,9 @@ def test_unported_switches_raise(switch, las, tmp_path, monkeypatch):
     NotImplementedError under the port instead of being ignored.
     HINGE_DEVICE_JOIN and HINGE_DEVICE_VOTE are ported: tests/
     test_torch_slice.py runs them against hinge_tpu."""
-    from hinge_tpu.data.simulator import SimParams, simulate
-    from hinge_tpu.io.fasta import write_fasta
-    from hinge_tpu.io.las import write_las
+    from hinge_tpu_torch.data.simulator import SimParams, simulate
+    from hinge_tpu_torch.io.fasta import write_fasta
+    from hinge_tpu_torch.io.las import write_las
     from hinge_tpu_torch.pipeline import assemble
 
     # the test_e2e_assembly.py dataset: it assembles, so consensus votes

@@ -3,7 +3,9 @@ jitted ops and the native C trim, on the CPU, tolerance 0.
 
 Inputs: __graft_entry__._synth_traced_batch (a consistent trace lattice)
 and the conftest noisy_sim overlaps; random read masks cut into the
-overlaps so that both trim predicates bite on both strands."""
+overlaps so that both trim predicates bite on both strands.  The port's
+functions get the port's own OverlapStore, carried over by
+hinge_tpu_torch.data.carry."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import __graft_entry__ as G
 from hinge_tpu.data.overlaps import OverlapStore
 from hinge_tpu.ops import classify as J
 from hinge_tpu.ops.pairs import _native_trim
+from hinge_tpu_torch.data import carry
 from hinge_tpu_torch.ops import classify as T
 from hinge_tpu_torch.ops import pairs as TP
 
@@ -39,8 +42,12 @@ def _masks(ov, read_len, seed):
     return es[ov.a_id], ee[ov.a_id], es[ov.b_id], ee[ov.b_id]
 
 
+def _port(ov):
+    return carry.overlap_store_from_arrays(vars(ov))
+
+
 def _walk(ov):
-    tw = T.build_trace_walk(ov)
+    tw = T.build_trace_walk(_port(ov))
     seg_id, k_local, _ = T.make_point_index(tw.npairs)
     return (tw.npairs, tw.pair_off, tw.cum, seg_id, k_local)
 
@@ -120,9 +127,10 @@ def test_process_alignments_lattice_matches_native(noisy_sim, monkeypatch):
     es = (rng.random(len(rl)) * rl * 0.3).astype(np.int32)
     ee = (rl - rng.random(len(rl)) * rl * 0.3).astype(np.int32)
     rows = np.arange(0, ov.n, 2)
-    args = (ov, rows, es, ee, 500, 300, -300, True)
+    pov = _port(ov)
+    args = (pov, rows, es, ee, 500, 300, -300, True)
     want = TP.process_alignments(*args, device="cpu")
-    if TP._native_trim(ov.take(rows[:1]), es[:1], ee[:1], es[:1], ee[:1],
+    if TP._native_trim(pov.take(rows[:1]), es[:1], ee[:1], es[:1], ee[:1],
                        100) is None:
         pytest.skip("native toolchain unavailable")
     monkeypatch.setattr(TP, "_native_trim", lambda *a: None)

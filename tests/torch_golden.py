@@ -2,22 +2,28 @@
 
 filter -> maximal -> layout -> clip -> draft-path through hinge_tpu_torch
 on a chosen device, on the golden dataset; the 11 files it writes must be
-byte-equal to tests/golden/.  Imports no jax, so chip_smoke.py can run it
-on the card.
+byte-equal to tests/golden/.  Imports neither jax nor hinge_tpu, so
+chip_smoke.py can run it on the card.
 """
 
 import os
 
 import numpy as np
 
-from tests.test_golden import FILES, GOLDEN_DIR  # noqa: F401
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+#: tests/test_golden.py's list of the files the five stages write
+FILES = [
+    "G.mas", "G.cmas", "G.repeat.txt", "G.hinges.txt", "G.max",
+    "G.contained.txt", "G.edges.hinges", "G.edges.hinges2", "G.hinge.list",
+    "G.killed.hinges", "G.edges.list",
+]
 
 
 def build(tmpdir: str, device) -> str:
-    from hinge_tpu.config import nominal_config
-    from hinge_tpu.data.simulator import SimParams, simulate
-    from hinge_tpu.stages.clip import run_clip
-    from hinge_tpu.stages.draft_path import run_draft_path
+    from hinge_tpu_torch.config import nominal_config
+    from hinge_tpu_torch.data.simulator import SimParams, simulate
+    from hinge_tpu_torch.stages.clip import run_clip
+    from hinge_tpu_torch.stages.draft_path import run_draft_path
     from hinge_tpu_torch.stages.filter import run_filter
     from hinge_tpu_torch.stages.layout import load_marked, run_layout
     from hinge_tpu_torch.stages.maximal import run_maximal
