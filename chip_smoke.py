@@ -10,9 +10,10 @@ and the exit code is nonzero:
 2. build   — nvcc builds the kernels from hinge_tpu_torch/csrc;
 3. kernels — band_fill and row_traceback on 2048 seeded windows
              (700-1100 bp, 1-15% error, plus edge cases), all-left
-             traceback rows and four ~12 kb windows (the 32-bit fill) must
-             be bit-equal to their plain torch twins on the same CUDA
-             tensors; prints kernel, previous kernel and twin times (CUDA
+             traceback rows, traceback rows of arbitrary int8 codes and
+             two 30 kb windows (whose costs would pass 16 bits without
+             the fill's rebase) must be bit-equal to their plain torch
+             twins on the same CUDA tensors; prints kernel, previous kernel and twin times (CUDA
              events) with each kernel's bound, and both kernels' time
              per 2048 windows at 2048, 4096 and 8192 windows per launch.
              The previous kernels (commit PARENT, before the redesign)
@@ -147,34 +148,66 @@ BN_BW = 256
 #: 32-bit integer operations/s (132 SMs x 64 INT32 lanes x 1.98 GHz)
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
-#: integer operations a band cell needs (sub compare, diag add, up add,
-#: min, e - k, prefix min, + k, min); a traceback cell (k <= k_e, move != 2,
-#: max)
+#: 16-bit integer operations/s: a 16x2 or DPX instruction does two
+INT16_OPS_S = 2 * INT32_OPS_S
+#: integer operations a band cell needs, in 16-bit halves (base compare,
+#: diag add, the add-mins of up, of the left scan and of C, the left and
+#: up tests, the move); a traceback cell, in 32 bits (k <= k_e,
+#: move != 2, max)
 FILL_OPS_PER_CELL = 8
 TB_OPS_PER_CELL = 3
+#: the least the card reads from HBM at a time
+SECTOR = 32
 
 
-def _bound(nbytes, nops):
-    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, nops / INT32_OPS_S * 1e3
+def _bound(nbytes, nops, ops_s):
+    b_ms, o_ms = nbytes / HBM_BYTES_S * 1e3, nops / ops_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def fill_bound(m, n, mrows):
     """Least time for band_fill on these inputs: q and t bytes read once,
-    the moves written once; every band cell computed."""
+    the moves written once; every band cell computed, two to a 16x2
+    instruction."""
     B = int(m.numel())
     cells = B * mrows * BN_BW
     nbytes = int(m.sum()) + int(n.sum()) + 8 * B + cells
-    return _bound(nbytes, FILL_OPS_PER_CELL * cells)
+    return _bound(nbytes, FILL_OPS_PER_CELL * cells, INT16_OPS_S)
 
 
-def traceback_bound(m, mrows):
-    """Least time for row_traceback: the active rows' moves read once,
-    cnts/mv0s/j_rem written once; one pass over each active row's cells."""
-    B = int(m.numel())
-    active = int(m.clamp(0, mrows).sum())
-    nbytes = active * BN_BW + 2 * B * mrows + 12 * B
-    return _bound(nbytes, TB_OPS_PER_CELL * active * BN_BW)
+def _path_cells(moves, m, n):
+    """Along the path that row_traceback_ref walks (the same loop): per
+    window, the cells of lanes 0..k_e of its active rows, and the 32-byte
+    sectors that hold them; and the path's final j."""
+    B, mrows, _ = moves.shape
+    lane = torch.arange(BN_BW, dtype=torch.int32, device=moves.device)[None, :]
+    j = n.clone()
+    cells = torch.zeros(B, dtype=torch.int64, device=moves.device)
+    sectors = torch.zeros_like(cells)
+    for r in range(min(int(m.max()), mrows) - 1, -1, -1):
+        row = moves[:, r].to(torch.int32)
+        active = r < m
+        k_e = torch.clamp(j - (r + 1) + BN_BW // 2, 0, BN_BW - 1)
+        top = torch.where((lane <= k_e[:, None]) & (row != 2),
+                          lane * 4 + row, -1).max(dim=1).values
+        j = torch.where(active, j - (k_e - (top >> 2))
+                        - ((top & 3) == 0).to(torch.int32), j)
+        cells += torch.where(active, k_e + 1, 0)
+        sectors += torch.where(active, k_e // SECTOR + 1, 0)
+    return int(cells.sum()), int(sectors.sum()), j
+
+
+def traceback_bound(moves, m, n, j_rem):
+    """Least time for row_traceback on these inputs: of each active row,
+    the sectors that hold lanes 0..k_e on the traceback's path read once
+    (what the walk needs), cnts/mv0s/j_rem written once; one pass over
+    those cells.  j_rem, the twin's, checks that the path is the twin's."""
+    B, mrows, _ = moves.shape
+    cells, sectors, j = _path_cells(moves, m, n)
+    if not torch.equal(j, j_rem):
+        raise AssertionError("the bound's path walk disagrees with the twin")
+    nbytes = SECTOR * sectors + 2 * B * mrows + 12 * B
+    return _bound(nbytes, TB_OPS_PER_CELL * cells, INT32_OPS_S)
 
 PARENT = "c8c124ed9147a5b1b503950838dd258193d9d71e"
 
@@ -300,7 +333,7 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
     times["row_traceback"]["plain"] = [
         _cuda_ms(lambda: BN.row_traceback_ref(moves, m, n), twin_reps)]
     bounds = {"band_fill": fill_bound(m, n, mrows),
-              "row_traceback": traceback_bound(m, mrows)}
+              "row_traceback": traceback_bound(moves, m, n, tb_ref[2])}
     summary = {}
     for name, d in times.items():
         ms = min(d["new"])
@@ -316,9 +349,21 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
     return {"band_fill": fill_err, "row_traceback": tb_err}, summary
 
 
+def _check_traceback(what, moves, m, n):
+    from hinge_tpu_torch.ops import band_nw as BN
+
+    got, want = BN.row_traceback(moves, m, n), BN.row_traceback_ref(moves, m, n)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"row_traceback differs from its twin on {what}")
+    log(f"[kernels] row_traceback bit-equal to its twin on {what}")
+    return _max_abs_err(got, want)
+
+
 def phase_kernels(parent):
-    """Kernels vs twins on the same CUDA tensors at the phase-3 shape, the
-    all-left rows, and long windows that take the 32-bit fill."""
+    """Kernels vs twins on the same CUDA tensors at the phase-3 shape,
+    traceback rows of all-left and of arbitrary codes, and windows long
+    enough to need the fill's rebase."""
     from hinge_tpu_torch.device import to_device
     from hinge_tpu_torch.ops import band_nw as BN
 
@@ -337,30 +382,29 @@ def phase_kernels(parent):
     sm = rng.integers(1, 1101, 256).astype(np.int32)
     sn = (sm + rng.integers(-126, 127, 256)).clip(0).astype(np.int32)
     smv, sdm, sdn = (to_device(a, dev) for a in (syn, sm, sn))
-    got, want = BN.row_traceback(smv, sdm, sdn), BN.row_traceback_ref(smv, sdm, sdn)
-    torch.cuda.synchronize()
-    errs["row_traceback"] = max(errs["row_traceback"], _max_abs_err(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("row_traceback differs from its twin on all-left rows")
-    log("[kernels] row_traceback bit-equal to its twin on all-left rows")
+    e = _check_traceback("all-left rows", smv, sdm, sdn)
+    # every int8 code: groups of rows with codes outside 0..3 take the
+    # kernel's per-cell max
+    smv = to_device(rng.integers(-128, 128, syn.shape).astype(np.int8), dev)
+    smv[:128] = smv[:128].remainder(4)
+    e = max(e, _check_traceback("arbitrary int8 codes", smv, sdm, sdn))
+    errs["row_traceback"] = max(errs["row_traceback"], e)
 
-    # windows past the 16-bit fill's range take the 32-bit fill
+    # windows whose costs would pass the 16-bit INF without the rebase
     lq, lt = [], []
-    for w in range(4):
-        tt = rng.integers(0, 4, 12_300 + 20 * w).astype(np.uint8)
+    for w in range(2):
+        tt = rng.integers(0, 4, 30_000 + 20 * w).astype(np.uint8)
         lq.append(_noisy_copy(rng, tt, 0.05)[: len(tt) + 100])
         lt.append(tt)
     q2, t2, m2, n2, mr2 = _pack(lq, lt, dev)
-    assert mr2 + t2.shape[1] > BN.NARROW_MAX
     got = BN.band_fill(q2, t2, m2, n2, mrows=mr2)
     want = BN.band_fill_ref(q2, t2, m2, n2, mr2)
     torch.cuda.synchronize()
     errs["band_fill"] = max(errs["band_fill"], _max_abs_err([got], [want]))
     if not torch.equal(got, want):
-        raise AssertionError("the 32-bit band_fill differs from its twin")
+        raise AssertionError("band_fill differs from its twin on long windows")
     log(f"[kernels] band_fill bit-equal to its twin on {len(lq)} windows of "
-        f"{int(m2.min())}..{mr2} rows (mrows + Lt {mr2 + t2.shape[1]} > "
-        f"{BN.NARROW_MAX}: the 32-bit fill)")
+        f"{int(m2.min())}..{mr2} rows")
     del q2, t2, got, want
     launch_sizes(dev)
     return errs, summary

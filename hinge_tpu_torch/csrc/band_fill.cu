@@ -16,19 +16,27 @@
 //
 // What bounds it on this card: every one of the B x mrows x 256 band cells
 // is computed and its move byte written, so the floor is the larger of the
-// move bytes over HBM bandwidth and the cell operations over the integer
-// issue rate; at the draft's shapes the operations bound it (~8-10 integer
-// operations per cell against one byte of output).  Each row also carries a
-// serial chain: the up shift and a scan across the band.
+// move bytes over HBM bandwidth and the cell operations over the issue
+// rate of the type that holds them.  A cell needs about 8 integer
+// operations (the base compare, the diag add, three add-mins for up, the
+// left scan and C, two tests and the move); in 16-bit halves one 16x2 or
+// DPX instruction does two cells, and then the move bytes bound it.  Each
+// row also carries a serial chain: the up shift and a scan across the band.
 //
-// What the design does about it (`band_fill_narrow_kernel`):
+// What the design does about it (`band_fill_kernel`):
 // - Two band cells per 32-bit register as signed 16-bit halves, driven by
 //   Hopper's DPX instructions (__viaddmin_s16x2 = min(a + b, c) per half,
 //   __viaddmax_u16x2) and the 16x2 mins (__vmins2, __vminu2): one
-//   instruction does two cells' add and min.  Costs fit 16 bits while
-//   mrows + Lt <= NARROW_MAX (ops/band_nw.py); INF is 0x7000, far above
+//   instruction does two cells' add and min.  INF is 0x7000, far above
 //   every finite cost and below the 16-bit limit after the scan's offsets,
 //   so every comparison orders as with the twin's 1 << 24.
+// - Costs stay small for windows of any length: every REBASE rows (past
+//   the rows that hold the j == 0 cell) the window's least finite cost is
+//   taken off its finite costs, INF staying INF.  Moves depend only on
+//   differences of finite costs and on their order against INF, so they
+//   do not change.  Neighbouring finite cells of a band row differ by at
+//   most 1 and a row's least cost grows by at most 1 a row, so finite
+//   costs stay below REBASE + 2 * 256.
 // - Two windows per warp, 16 lanes x 16 cells each: one round of shuffles
 //   (the up shift, the 5-step exclusive scan) serves both windows.
 // - A lane's register p holds its cells p and p + 8, so "up" of register
@@ -46,8 +54,6 @@
 // - q bytes and the last lane's t byte are loaded a group of 8 rows ahead,
 //   off the row chain; no global load sits on the chain.
 // - Each lane writes its 16 move bytes of a row as one 16-byte store.
-// Windows whose mrows + Lt exceed NARROW_MAX take `band_fill_wide_kernel`,
-// the 32-bit one-warp-per-window kernel (8 cells per lane, int costs).
 
 #include <cstdint>
 #include <climits>
@@ -59,14 +65,11 @@ constexpr int BW = 256;
 constexpr int HB = BW / 2;
 constexpr unsigned FULL = 0xffffffffu;
 
-// ---------------------------------------------------------------------------
-// narrow kernel: int16x2 cells
-// ---------------------------------------------------------------------------
-
 constexpr int N_WARPS = 4;            // 8 windows per block
 constexpr int N_PER = 16;             // cells per lane
 constexpr int N_PAIRS = N_PER / 2;
 constexpr int GROUP = 8;              // rows per prefetch group = t rotation
+constexpr int REBASE = 512;           // rows between rebases of the costs
 constexpr unsigned INF16 = 0x7000u;   // INF in one half
 constexpr unsigned INF2 = INF16 | (INF16 << 16);
 constexpr unsigned ONES = 0x00010001u;
@@ -122,7 +125,7 @@ enum RowKind { EDGE, J0, INNER };
 // k = 0, 1, since e <= INF + 1).  The lanes' tails go through an exclusive
 // min-scan in units e - l, and C[k] = min(P[k], carry + k).
 template <RowKind KIND, int R>
-__device__ __forceinline__ uint4 narrow_row(
+__device__ __forceinline__ uint4 fill_row(
         unsigned (&cost)[N_PAIRS], unsigned (&tw)[N_PAIRS], int i, int m,
         unsigned qb, unsigned t_top, int l16, int k0) {
 #define TW(p) tw[((p) + R) & (N_PAIRS - 1)]
@@ -212,27 +215,43 @@ __device__ __forceinline__ uint4 narrow_row(
                       prmt(a01, a23, 0x7632), prmt(a45, a67, 0x7632));
 }
 
+// Takes the window's least finite cost (over its half-warp) off its finite
+// costs; an all-INF row stays as it is.
+__device__ __forceinline__ void rebase(unsigned (&cost)[N_PAIRS]) {
+    unsigned lo = cost[0];
+#pragma unroll
+    for (int p = 1; p < N_PAIRS; ++p) lo = vmin_u(lo, cost[p]);
+    unsigned least = min(lo & 0xffffu, lo >> 16);
+#pragma unroll
+    for (int s = 1; s < 16; s <<= 1)
+        least = min(least, __shfl_xor_sync(FULL, least, s, 16));
+    const unsigned off = (least < INF16 ? least : 0u) * ONES;
+#pragma unroll
+    for (int p = 0; p < N_PAIRS; ++p)
+        cost[p] -= off & __vcmpltu2(cost[p], INF2);  // finite halves >= least
+}
+
 // One group of GROUP = 8 rows from i0 (the t window's rotation returns to
 // 0 after it); stops at mrows.
 template <RowKind KIND, int R = 0>
-__device__ __forceinline__ void narrow_group(
+__device__ __forceinline__ void fill_group(
         unsigned (&cost)[N_PAIRS], unsigned (&tw)[N_PAIRS], int i0, int mrows,
         int m, const unsigned (&qc)[GROUP], const unsigned (&tc)[GROUP],
         int l16, int k0, bool real, uint4* out) {
     if constexpr (R < GROUP) {
         const int i = i0 + R;
         if (i > mrows) return;
-        const uint4 mv = narrow_row<KIND, R>(cost, tw, i, m, qc[R], tc[R], l16, k0);
+        const uint4 mv = fill_row<KIND, R>(cost, tw, i, m, qc[R], tc[R], l16, k0);
         if (real) out[static_cast<long long>(i - 1) * (BW / 16)] = mv;
-        narrow_group<KIND, R + 1>(cost, tw, i0, mrows, m, qc, tc, l16, k0, real, out);
+        fill_group<KIND, R + 1>(cost, tw, i0, mrows, m, qc, tc, l16, k0, real, out);
     }
 }
 
 __global__ void __launch_bounds__(N_WARPS * 32)
-band_fill_narrow_kernel(const uint8_t* __restrict__ q, long long q_stride,
-                        const uint8_t* __restrict__ t, long long t_stride,
-                        const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-                        int8_t* __restrict__ moves, int B, int mrows) {
+band_fill_kernel(const uint8_t* __restrict__ q, long long q_stride,
+                 const uint8_t* __restrict__ t, long long t_stride,
+                 const int32_t* __restrict__ m, const int32_t* __restrict__ n,
+                 int8_t* __restrict__ moves, int B, int mrows) {
     const int lane = threadIdx.x & 31;
     const int l16 = lane & 15;
     const int warp = blockIdx.x * N_WARPS + (threadIdx.x >> 5);
@@ -291,115 +310,23 @@ band_fill_narrow_kernel(const uint8_t* __restrict__ q, long long q_stride,
             qn[g] = (ii <= mrows) ? q_of(ii) : 0u;
             tn[g] = (ii <= mrows) ? top_of(ii) : 0u;
         }
+        if (i0 > HB && (i0 - 1) % REBASE == 0) rebase(cost);
         // the row kind is chosen per group: uniform over the warp
         if (i0 <= HB)
-            narrow_group<J0>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
+            fill_group<J0>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
         else if (i0 + GROUP - 1 <= inner_last)
-            narrow_group<INNER>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
+            fill_group<INNER>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
         else
-            narrow_group<EDGE>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// wide kernel: int32 cells, one warp per window (mrows + Lt > NARROW_MAX)
-// ---------------------------------------------------------------------------
-
-constexpr int W_PER = BW / 32;  // band cells per lane
-constexpr int W_INF = 1 << 24;
-constexpr int W_WARPS = 4;      // windows per block
-
-__global__ void __launch_bounds__(W_WARPS * 32)
-band_fill_wide_kernel(const uint8_t* __restrict__ q, long long q_stride,
-                      const uint8_t* __restrict__ t, long long t_stride,
-                      const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-                      int8_t* __restrict__ moves, int B, int mrows) {
-    const int lane = threadIdx.x & 31;
-    const int b = blockIdx.x * W_WARPS + (threadIdx.x >> 5);
-    if (b >= B) return;  // whole warps only: the shuffles below stay full
-    const int mb = m[b];
-    const int nb = n[b];
-    const uint8_t* qb = q + b * q_stride;
-    const uint8_t* tb = t + b * t_stride;
-    uint64_t* out = reinterpret_cast<uint64_t*>(
-        moves + static_cast<long long>(b) * mrows * BW) + lane;
-    const int k0 = lane * W_PER;
-
-    int cost[W_PER];
-#pragma unroll
-    for (int p = 0; p < W_PER; ++p) {
-        const int j0 = k0 + p - HB;  // row 0: C[0, j] = j on [0, n]
-        cost[p] = (j0 >= 0 && j0 <= nb) ? j0 : W_INF;
-    }
-
-    for (int i = 1; i <= mrows; ++i) {
-        int up_next = __shfl_down_sync(FULL, cost[0], 1);
-        if (lane == 31) up_next = W_INF;
-        const int qc = (i <= mb) ? static_cast<int>(qb[i - 1])
-                                 : static_cast<int>(Q_PAD);
-
-        int e[W_PER], dg[W_PER], upc[W_PER];
-        bool keep[W_PER];
-#pragma unroll
-        for (int p = 0; p < W_PER; ++p) {
-            const int j = i + k0 + p - HB;
-            const bool valid = j >= 1 && j <= nb;
-            const int up = (p < W_PER - 1) ? cost[p + 1] : up_next;
-            const int sub = (valid && qc == static_cast<int>(tb[j - 1])) ? 0 : 1;
-            dg[p] = cost[p] + sub;
-            upc[p] = up + 1;
-            int ee = valid ? min(dg[p], upc[p]) : W_INF;
-            if (j == 0) ee = i;
-            e[p] = ee;
-            keep[p] = valid || j == 0;
-        }
-
-        // inclusive prefix-min of e[k] - k over the 256 band cells:
-        // serial over this lane's cells, then a warp scan of lane totals
-        int g[W_PER];
-        g[0] = e[0] - k0;
-#pragma unroll
-        for (int p = 1; p < W_PER; ++p) g[p] = min(g[p - 1], e[p] - (k0 + p));
-        int run = g[W_PER - 1];
-#pragma unroll
-        for (int s = 1; s < 32; s <<= 1) {
-            const int o = __shfl_up_sync(FULL, run, s);
-            if (lane >= s) run = min(run, o);
-        }
-        int before = __shfl_up_sync(FULL, run, 1);
-        if (lane == 0) before = INT_MAX;
-
-        uint64_t packed = 0;
-#pragma unroll
-        for (int p = 0; p < W_PER; ++p) {
-            const int k = k0 + p;
-            // the TPU kernel's shifted-in INF caps the scan at INF
-            const int gg = min(min(g[p], before), W_INF);
-            int c = min(e[p], gg + k);
-            int mv;
-            if (!keep[p]) {
-                c = W_INF;
-                mv = 3;
-            } else if (i + k - HB == 0) {
-                mv = 1;
-            } else {
-                mv = (c < e[p]) ? 2 : (dg[p] <= upc[p] ? 0 : 1);
-            }
-            packed |= static_cast<uint64_t>(mv) << (8 * p);
-            if (i <= mb) cost[p] = c;
-        }
-        out[static_cast<long long>(i - 1) * (BW / 8)] = packed;
+            fill_group<EDGE>(cost, tw, i0, mrows, mb, qc, tc, l16, k0, real, out);
     }
 }
 
 }  // namespace
 
-// wide = 0: the int16x2 kernel (caller guarantees mrows + Lt <= NARROW_MAX
-// of ops/band_nw.py); wide = 1: the int32 kernel.
 extern "C" int hinge_band_fill(const void* q, long long q_stride,
                                const void* t, long long t_stride,
                                const void* m, const void* n, void* moves,
-                               int B, int mrows, int wide, void* stream) {
+                               int B, int mrows, void* stream) {
     if (B <= 0 || mrows <= 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* qp = static_cast<const uint8_t*>(q);
@@ -407,15 +334,9 @@ extern "C" int hinge_band_fill(const void* q, long long q_stride,
     const auto* mp = static_cast<const int32_t*>(m);
     const auto* np_ = static_cast<const int32_t*>(n);
     auto* out = static_cast<int8_t*>(moves);
-    if (wide) {
-        const int blocks = (B + W_WARPS - 1) / W_WARPS;
-        band_fill_wide_kernel<<<blocks, W_WARPS * 32, 0, s>>>(
-            qp, q_stride, tp, t_stride, mp, np_, out, B, mrows);
-    } else {
-        const int per_block = 2 * N_WARPS;
-        const int blocks = (B + per_block - 1) / per_block;
-        band_fill_narrow_kernel<<<blocks, N_WARPS * 32, 0, s>>>(
-            qp, q_stride, tp, t_stride, mp, np_, out, B, mrows);
-    }
+    const int per_block = 2 * N_WARPS;
+    const int blocks = (B + per_block - 1) / per_block;
+    band_fill_kernel<<<blocks, N_WARPS * 32, 0, s>>>(
+        qp, q_stride, tp, t_stride, mp, np_, out, B, mrows);
     return static_cast<int>(cudaGetLastError());
 }

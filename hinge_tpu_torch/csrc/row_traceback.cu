@@ -4,7 +4,7 @@
 // hinge_tpu/ops/pallas_band_nw.py::_row_traceback_pallas (body :247,
 // pallas_call at :279); the plain torch twin is
 // hinge_tpu_torch/ops/band_nw.py::row_traceback_ref.  Outputs are
-// bit-identical to both for move codes 0..3 (what band_fill writes).
+// bit-identical to both for any int8 move codes.
 //
 // Every optimal path visits each DP row once, so walking rows
 // r = min(m, mrows)-1 .. 0 with the current column j of the window
@@ -14,8 +14,10 @@
 //   j    -= cnt + (mv0 == 0)
 // cnt is stored as uint8 (256 wraps to 0), rows r >= m store zeros.
 //
-// What bounds it on this card: the bytes are the active rows' moves, read
-// once (256 B a row), so the floor is that over HBM bandwidth.  But j of
+// What bounds it on this card: the bytes the walk needs are, of each
+// active row, the 32-byte sectors that hold lanes 0..k_e (about half the
+// row), so the floor is those over HBM bandwidth.  The kernel reads whole
+// rows: which sectors a row needs is known only once j is.  And j of
 // row r decides what row r-1 needs, so each window is a serial chain of
 // ~1k steps, and a kernel that waits for each row's load on that chain is
 // bound by the load latency instead.
@@ -28,7 +30,12 @@
 // candidate, and one __reduce_max_sync the warp's.  The per-row outputs
 // are buffered across the lanes (lane r % 32 keeps row r) and written as
 // 32 coalesced bytes every 32 rows.
+// The mask form holds for codes 0..3, what band_fill writes: there the
+// highest non-left lane wins the max.  A group of rows holding any other
+// code takes, in a loop of its own, the twin's max over every cell
+// (k*4 + code, -1 where masked).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,44 +84,71 @@ row_traceback_kernel(const int8_t* __restrict__ moves,
 #pragma unroll
     for (int g = 0; g < GROUP; ++g)
         cur[g] = (r - g >= 0) ? __ldg(mv + static_cast<long long>(r - g) * (BW / 8)) : 0;
+    // k_e of row rr, and how many of this lane's cells lie at or below it
+    auto k_e_of = [&](int rr, int& sh) {
+        int k_e = j - (rr + 1) + HB;
+        k_e = k_e < 0 ? 0 : (k_e > BW - 1 ? BW - 1 : k_e);
+        sh = k_e - k0 + 1;
+        sh = sh < 0 ? 0 : (sh > PER ? PER : sh);
+        return k_e;
+    };
+    // the warp's max of the lanes' keys resolves row rr
+    auto resolve = [&](int rr, int k_e, int best) {
+        const int top = __reduce_max_sync(FULL, best);
+        const int kstop = top >> 2;
+        const int mv0 = top & 3;
+        const int cnt = k_e - kstop;
+        j -= cnt + (mv0 == 0 ? 1 : 0);
+        if (lane == (rr & 31)) {
+            my_cnt = static_cast<unsigned>(cnt) & 0xffu;
+            my_mv0 = static_cast<unsigned>(mv0);
+        }
+        if ((rr & 31) == 0) {  // the chunk rr .. rr + 31 is done
+            if (rr + lane < mrows) {
+                cnts[row0 + rr + lane] = static_cast<uint8_t>(my_cnt);
+                mv0s[row0 + rr + lane] = static_cast<int8_t>(my_mv0);
+            }
+            my_cnt = my_mv0 = 0;
+        }
+    };
     while (r >= 0) {
-        uint64_t nxt[GROUP];
+        uint64_t nxt[GROUP], any = 0;
 #pragma unroll
         for (int g = 0; g < GROUP; ++g) {
             const int rr = r - GROUP - g;
             nxt[g] = rr >= 0 ? __ldg(mv + static_cast<long long>(rr) * (BW / 8)) : 0;
+            any |= cur[g];
         }
+        if (__any_sync(FULL, (any & 0xFCFCFCFCFCFCFCFCull) != 0)) {
+            // a code outside 0..3: every cell's key, rows read again
+#pragma unroll 1
+            for (int rr = r; rr > r - GROUP && rr >= 0; --rr) {
+                const uint64_t w = __ldg(mv + static_cast<long long>(rr) * (BW / 8));
+                int sh;
+                const int k_e = k_e_of(rr, sh);
+                int best = INT_MIN;
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
-            const int rr = r - g;
-            if (rr < 0) break;
-            const uint64_t w = cur[g];
-            const unsigned nl = nonleft_bits(w);
-            int k_e = j - (rr + 1) + HB;
-            k_e = k_e < 0 ? 0 : (k_e > BW - 1 ? BW - 1 : k_e);
-            int sh = k_e - k0 + 1;
-            sh = sh < 0 ? 0 : (sh > PER ? PER : sh);
-            const unsigned mm = nl & ((1u << sh) - 1u);
-            int best = -1;
-            if (mm) {
-                const int p = 31 - __clz(mm);
-                best = (k0 + p) * 4 + static_cast<int>((w >> (8 * p)) & 3u);
-            }
-            const int top = __reduce_max_sync(FULL, best);
-            const int kstop = top >> 2;
-            const int mv0 = top & 3;
-            const int cnt = k_e - kstop;
-            j -= cnt + (mv0 == 0 ? 1 : 0);
-            if (lane == (rr & 31)) {
-                my_cnt = static_cast<unsigned>(cnt) & 0xffu;
-                my_mv0 = static_cast<unsigned>(mv0);
-            }
-            if ((rr & 31) == 0) {  // the chunk rr .. rr + 31 is done
-                if (rr + lane < mrows) {
-                    cnts[row0 + rr + lane] = static_cast<uint8_t>(my_cnt);
-                    mv0s[row0 + rr + lane] = static_cast<int8_t>(my_mv0);
+                for (int p = 0; p < PER; ++p) {
+                    const int c = static_cast<int8_t>(w >> (8 * p));
+                    best = max(best, (p < sh && c != 2) ? (k0 + p) * 4 + c : -1);
                 }
-                my_cnt = my_mv0 = 0;
+                resolve(rr, k_e, best);
+            }
+        } else {
+#pragma unroll
+            for (int g = 0; g < GROUP; ++g) {
+                const int rr = r - g;
+                if (rr < 0) break;
+                const uint64_t w = cur[g];
+                int sh;
+                const int k_e = k_e_of(rr, sh);
+                const unsigned mm = nonleft_bits(w) & ((1u << sh) - 1u);
+                int best = -1;
+                if (mm) {
+                    const int p = 31 - __clz(mm);
+                    best = (k0 + p) * 4 + static_cast<int>((w >> (8 * p)) & 3u);
+                }
+                resolve(rr, k_e, best);
             }
         }
 #pragma unroll

@@ -5,9 +5,7 @@ regular-access band formulation).  Two kernels, each with a plain torch
 twin in this module:
 
 - `band_fill` (K1, csrc/band_fill.cu; twin `band_fill_ref`): int8 move
-  codes (B, mrows, 256), 0 diag, 1 up, 2 left, 3 invalid.  Blocks with
-  mrows + Lt <= NARROW_MAX run the 16-bit-cell kernel, longer ones the
-  32-bit-cell kernel of the same source;
+  codes (B, mrows, 256), 0 diag, 1 up, 2 left, 3 invalid;
 - `row_traceback` (K2, csrc/row_traceback.cu; twin `row_traceback_ref`):
   per-row left-run counts, terminating moves and the leading left
   columns.
@@ -34,9 +32,6 @@ BW = 256
 HB = BW // 2
 INF = 1 << 24
 I32 = torch.int32
-#: largest mrows + Lt of the 16-bit-cell fill: its finite costs (at most
-#: mrows + Lt) then stay below its INF of 0x7000 less the band width
-NARROW_MAX = 24576
 #: windows per band_fill / row_traceback launch in band_align_batch
 MAX_BATCH = 8192
 
@@ -144,12 +139,10 @@ def launch_band_fill(q, t, m, n, mrows: int) -> torch.Tensor:
     moves = torch.empty((B, mrows, BW), dtype=torch.int8, device=dev)
     if B == 0 or mrows == 0:
         return moves
-    wide = int(mrows + t.shape[1] > NARROW_MAX)
     with torch.cuda.device(dev):
         err = lib.hinge_band_fill(
             q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
-            m.data_ptr(), n.data_ptr(), moves.data_ptr(), B, mrows, wide,
-            stream)
+            m.data_ptr(), n.data_ptr(), moves.data_ptr(), B, mrows, stream)
     if err:
         raise RuntimeError(f"band_fill kernel launch failed: cudaError {err}")
     launches["band_fill"] += 1
@@ -191,8 +184,7 @@ def row_traceback_ref(moves, m, n):
 def row_traceback(moves, m, n):
     """Traceback on the moves' device: the CUDA kernel for CUDA tensors,
     the plain twin for CPU tensors.  Arguments as for
-    `row_traceback_ref`; the kernel reads move codes 0..3, as band_fill
-    writes them."""
+    `row_traceback_ref`."""
     dev = moves.device
     _check("moves", moves, torch.int8, 3, dev)
     _check("m", m, I32, 1, dev)

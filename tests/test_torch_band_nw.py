@@ -113,6 +113,24 @@ def test_row_traceback_ref_on_random_moves():
     assert (np.asarray(want[0])[:8] == 0).any()
 
 
+def test_row_traceback_ref_on_any_int8_codes():
+    """The traceback is defined for every int8 code, not only the 0..3
+    that band_fill writes: a lane's key is k*4 + code, so a low lane with
+    a large code can win the max, and cnt can be negative."""
+    rng = np.random.default_rng(11)
+    b, mrows = 24, 300
+    moves = rng.integers(-128, 128, (b, mrows, 256)).astype(np.int8)
+    moves[:4] %= 4
+    m = rng.integers(1, mrows + 1, b).astype(np.int32)
+    n = (m + rng.integers(-126, 127, b)).clip(0).astype(np.int32)
+    want = J._row_traceback(jnp.asarray(moves), jnp.asarray(m),
+                            jnp.asarray(n), bw=256, mrows=mrows)
+    got = T.row_traceback(torch.from_numpy(moves), torch.from_numpy(m),
+                          torch.from_numpy(n))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_band_align_batch_rows(jax_moves):
     """Port rows equal hinge_tpu's interpreted band_align_batch and the
     numpy full-DP oracle; band overflow goes to the Myers path."""
@@ -163,3 +181,33 @@ def test_cuda_kernels_match_twins(cuda_device):
         assert torch.equal(g, w)
     assert T.launches["band_fill"] == before["band_fill"] + 1
     assert T.launches["row_traceback"] == before["row_traceback"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_traceback_on_any_int8_codes(cuda_device):
+    """Rows with codes outside 0..3 take the kernel's per-cell max."""
+    rng = np.random.default_rng(12)
+    moves = rng.integers(-128, 128, (64, 700, 256)).astype(np.int8)
+    moves[:16] %= 4
+    m = rng.integers(1, 701, 64).astype(np.int32)
+    n = (m + rng.integers(-126, 127, 64)).clip(0).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (moves, m, n)]
+    got, want = T.row_traceback(*args), T.row_traceback_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_fill_past_16_bit_costs(cuda_device):
+    """Windows whose costs would pass the fill's 16-bit INF without its
+    periodic rebase."""
+    rng = np.random.default_rng(13)
+    qs, ts = [], []
+    for w in range(2):
+        q, t = _make_pair(rng, 30_000 + 7 * w, 0.05)
+        qs.append(q)
+        ts.append(t)
+    q, t, m, n = (x.to(cuda_device) for x in _port_layout(qs, ts))
+    mrows = int(m.max())
+    moves = T.band_fill(q, t, m, n, mrows=mrows)
+    assert torch.equal(moves, T.band_fill_ref(q, t, m, n, mrows))
