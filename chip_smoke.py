@@ -39,7 +39,23 @@ and the exit code is nonzero:
              and HINGE_DEVICE_VOTE=1, which must run the device join, the
              device vote and both kernels and yield a contig >= 0.9 of the
              genome; the consensus stage rerun on the same draft with the
-             native C vote must write a byte-equal X.consensus.fasta.
+             native C vote must write a byte-equal X.consensus.fasta;
+8. hinge surface — phase 5's reads written as reads.db with their qual
+             track (so the filter's QV mask runs on the card) and its
+             reads.las, through the per-stage verbs of hinge_tpu_torch.cli
+             in this process with --device cuda: filter, maximal, layout,
+             clip, draft-path, draft (which must launch both kernels),
+             correct-head, map, consensus, gfa.  The draft verb again in a
+             fresh `python -m hinge_tpu_torch.cli` process must write a
+             byte-equal FASTA without rebuilding the kernels; condense,
+             n50, unitig, hgraph, merge-hinges, condense-gfa, bandage and
+             single-strand must run on the chain's outputs; split_las then
+             merge_las must give back reads.las's records exactly; and
+             assemble(db=, las=) in a second workdir must write the
+             CHAIN_EQUALS_ASSEMBLE files byte-equal to the chain's, with a
+             consensus contig >= 0.9 of the genome.  Prints per-verb walls,
+             the chain's wall against assemble()'s, the fresh draft's wall
+             and peak device memory.
 
 Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
@@ -50,6 +66,7 @@ Imports no jax.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,6 +88,62 @@ KERNELS = {
     "row_traceback": ("hinge_tpu_torch/csrc/row_traceback.cu",
                       "hinge_tpu/ops/pallas_band_nw.py:231"),
 }
+
+#: the stage files that hinge_tpu's per-stage CLI chain and its
+#: assemble(db=, las=) write byte-equal (tests/test_torch_cli.py shows it on
+#: the CPU); phase 8 holds the port's chain and assemble() to the same
+CHAIN_EQUALS_ASSEMBLE = (
+    "X.cmas", "X.consensus.fasta", "X.contained.txt", "X.cov.flag",
+    "X.coverage.txt", "X.deadends.txt", "X.draft.fasta", "X.draft.pb.fasta",
+    "X.edges.1", "X.edges.2", "X.edges.greedy", "X.edges.hinges",
+    "X.edges.hinges2", "X.edges.list", "X.edges.skipped", "X.filtered.fasta",
+    "X.garbage.txt", "X.hgraph", "X.hinge.list", "X.hinges.txt",
+    "X.homologous.txt", "X.killed.hinges", "X.mas", "X.max", "X.repeat.txt",
+    "X.self.flag", "X1.G0.graphml", "X1.G1.graphml", "X1.G2.graphml",
+    "X_consensus.gfa", "X_draft.graphml", "draft_map.txt",
+)
+
+
+def assemble_name(name):
+    """The name assemble() (prefix "asm") gives the chain's file `name`
+    (prefix "X")."""
+    return "asm" + name[1:] if name.startswith("X") else name
+
+LAS_COLUMNS = ("a_id", "b_id", "a_len", "b_len", "a_start", "a_end",
+               "b_start", "b_end", "rc", "diffs", "tlen")
+
+
+def _record_traces(ov):
+    """The trace values of every record, in record order."""
+    tlen = ov.tlen.astype(np.int64)
+    start = np.repeat(ov.trace_off.astype(np.int64), tlen)
+    k = np.arange(int(tlen.sum())) - np.repeat(np.cumsum(tlen) - tlen, tlen)
+    return ov.trace[start + k]
+
+
+def check_las_roundtrip(orig, merged):
+    """`merged` (split_las then merge_las) holds exactly the records of
+    `orig` in LAmerge's order (a_id, b_id, rc, a_start; ties in file
+    order): every column and every trace value equal."""
+    want = orig.take(np.lexsort((orig.a_start, orig.rc, orig.b_id, orig.a_id)))
+    if merged.n != want.n or merged.tspace != want.tspace:
+        raise AssertionError(f"merge_las: {merged.n} records (tspace "
+                             f"{merged.tspace}), want {want.n} ({want.tspace})")
+    for col in LAS_COLUMNS:
+        if not np.array_equal(getattr(merged, col), getattr(want, col)):
+            raise AssertionError(f"merge_las: column {col} differs")
+    if not np.array_equal(_record_traces(merged), _record_traces(want)):
+        raise AssertionError("merge_las: trace values differ")
+
+
+def unitig_input(graphml):
+    """A clip graphml with its raw match coordinates under the attribute
+    names the unitig tool reads (read_a_start_raw, ...)."""
+    for r in ("a", "b"):
+        for end in ("start", "end"):
+            graphml = graphml.replace(f'"read_{r}_match_{end}_raw"',
+                                      f'"read_{r}_{end}_raw"')
+    return graphml
 
 
 def log(msg):
@@ -716,6 +789,243 @@ def phase_fasta_only(tmp, fasta):
     return launches, ops
 
 
+def _run_verb(argv, walls, cuda=True):
+    """One verb through hinge_tpu_torch.cli.main in this process, timed
+    (to the end of its device work); raises when it fails or prints no
+    summary."""
+    import contextlib
+    import io
+
+    from hinge_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + (["--device", "cuda"] if cuda else []))
+    torch.cuda.synchronize()
+    walls[argv[0]] = walls.get(argv[0], 0.0) + time.perf_counter() - t0
+    if rc != 0 or not buf.getvalue().strip():
+        raise AssertionError(f"hinge {argv[0]}: rc {rc}, printed "
+                             f"{buf.getvalue()!r}")
+    return buf.getvalue()
+
+
+def _require_files(wd, names, verb):
+    for name in names:
+        if not os.path.isfile(os.path.join(wd, name)):
+            raise AssertionError(f"hinge {verb} did not write {name}")
+
+
+def _lib_mtimes():
+    from hinge_tpu_torch.ops import _build
+
+    return {f: os.stat(os.path.join(_build.BUILD_DIR, f)).st_mtime_ns
+            for f in os.listdir(_build.BUILD_DIR) if f.endswith(".so")}
+
+
+def phase_hinge_surface(tmp, rs, las):
+    """Phase 8: the per-stage `hinge` chain on reads.db (with the qual
+    track) + phase 5's reads.las, the draft verb again in a fresh process,
+    the graph tools on the chain's outputs, split_las/merge_las, and
+    assemble(db=) in a second workdir, which must write the compared
+    stage files byte-equal."""
+    from hinge_tpu_torch.io.dazz_db import read_db, write_db
+    from hinge_tpu_torch.io.fasta import read_fasta
+    from hinge_tpu_torch.io.las import read_las
+    from hinge_tpu_torch.ops import band_nw as BN
+    from hinge_tpu_torch.pipeline import assemble
+
+    base = os.path.join(tmp, "surface")
+    wd = os.path.join(base, "chain")
+    os.makedirs(wd)
+    db = os.path.join(base, "reads.db")
+    t0 = time.perf_counter()
+    write_db(db, rs)
+    qv = read_db(db, load_bases=False)
+    if not qv.has_qv() or not np.array_equal(qv.qv_val, rs.qv_val):
+        raise AssertionError("reads.db lost the qual track")
+    log(f"[surface] host set-up: wrote reads.db ({rs.n_reads} reads, "
+        f"{len(rs.qv_val)} QV segments) in {time.perf_counter() - t0:.3f}s")
+
+    io_ = ["--db", db, "--las", las, "-x", "X"]
+    chain = [
+        ["filter", *io_], ["maximal", *io_], ["layout", *io_, "--out", "X"],
+        ["clip", "X.edges.hinges", "X.hinge.list", "1"],
+        ["draft-path", ".", "X", "X1.G2.graphml", "--db", db],
+        ["draft", *io_, "--out", "X.draft"],
+        ["correct-head", "X.draft.fasta", "X.draft.pb.fasta", "draft_map.txt"],
+        ["map", "X.draft.fasta", "--db", db, "--out", "draft.las"],
+        ["consensus", "X.draft.fasta", db, "draft.las", "X.consensus.fasta"],
+        ["gfa", ".", "X", "X.consensus.fasta"],
+    ]
+    device_verbs = {"filter", "maximal", "layout", "draft", "consensus"}
+    walls = {}
+    old = os.getcwd()
+    os.chdir(wd)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for argv in chain:
+            if argv[0] == "draft":
+                _zero(BN.launches)
+            _run_verb(argv, walls, cuda=argv[0] in device_verbs)
+            if argv[0] == "draft":
+                launches = dict(BN.launches)
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches("surface draft", launches)
+        _require_files(wd, CHAIN_EQUALS_ASSEMBLE + ("draft.las",), "chain")
+        chain_wall = sum(walls.values())
+        log("[surface] chain on cuda: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in walls.items())
+            + f"; total {chain_wall:.3f}s; peak device memory {peak} bytes; "
+            f"draft launches {launches}")
+
+        # the draft verb as users run it: a fresh interpreter, which loads
+        # the kernels built above without building them again
+        libs = _lib_mtimes()
+        import hinge_tpu_torch
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(
+            hinge_tpu_torch.__file__)))
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "hinge_tpu_torch.cli", "draft", *io_,
+             "--out", "X.fresh", "--device", "cuda"],
+            cwd=wd, env=env, capture_output=True, text=True, timeout=600)
+        fresh_wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"fresh-process draft failed: {r.stderr[-2000:]}")
+        if _lib_mtimes() != libs:
+            raise AssertionError("the fresh process rebuilt the kernels")
+        with open("X.draft.fasta", "rb") as f, open("X.fresh.fasta", "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("fresh-process draft FASTA differs from "
+                                     "the in-process one")
+        log(f"[surface] fresh-process draft: {r.stdout.strip().splitlines()[-1]}"
+            f" in {fresh_wall:.3f}s, FASTA byte-equal to the in-process "
+            "draft, no kernel rebuilt")
+
+        # the graph tools on the chain's outputs
+        with open("X1.G2.graphml") as f, open("X1.G2.raw.graphml", "w") as g:
+            g.write(unitig_input(f.read()))
+        tools = [
+            (["condense", "X1.G2.graphml", "--out", "X1.G2.condensed.graphml"],
+             ["X1.G2.condensed.graphml"]),
+            (["n50", "X_draft.graphml"], []),
+            (["unitig", "X1.G2.raw.graphml", "--out", "X.unitig.list"],
+             ["X.unitig.list"]),
+            (["hgraph", "X.hgraph", "--out", "X.hgraph.graphml"],
+             ["X.hgraph.graphml"]),
+            (["merge-hinges", "X.edges.hinges2", "X.hgraph", "X.hinge.list",
+              "--prefix", "M"], ["M.G0_merged.graphml", "M.G1_merged.graphml"]),
+            (["condense-gfa", "X.edges.hinges2", "--out-prefix", "CG"],
+             ["CG.condensed.graphml", "CG.bandage"]),
+            (["bandage", "X.edges.hinges", "X.bandage"], ["X.bandage"]),
+            (["single-strand", "X.consensus.fasta", "X.single.fasta"],
+             ["X.single.fasta"]),
+        ]
+        tool_walls = {}
+        for argv, outs in tools:
+            _run_verb(argv, tool_walls, cuda=False)
+            _require_files(wd, outs, argv[0])
+        log("[surface] tools: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in tool_walls.items()))
+
+        # split_las, merge_las: the merged records are the original's
+        n_parts = 4
+        t0 = time.perf_counter()
+        shutil.copy(las, "parts.las")
+        orig = read_las("parts.las")
+        _run_verb(["split_las", "parts.las", "--max-records",
+                   str(orig.n // n_parts + 1)], tool_walls, cuda=False)
+        parts = sorted((f for f in os.listdir(".") if f.startswith("parts.")
+                        and f != "parts.las"), key=lambda f: int(f.split(".")[1]))
+        if len(parts) < 2:
+            raise AssertionError(f"split_las wrote {parts}")
+        _run_verb(["merge_las", "merged.las", *parts], tool_walls, cuda=False)
+        check_las_roundtrip(orig, read_las("merged.las"))
+        log(f"[surface] split_las -> {len(parts)} parts -> merge_las: "
+            f"{orig.n} records equal to reads.las on every column and trace "
+            f"value ({time.perf_counter() - t0:.3f}s)")
+        del orig
+    finally:
+        os.chdir(old)
+
+    # assemble(db=) in a second workdir
+    asm = os.path.join(base, "asm")
+    t0 = time.perf_counter()
+    res = assemble(db=db, las=las, workdir=asm, device="cuda",
+                   log=lambda *a: None)
+    torch.cuda.synchronize()
+    asm_wall = time.perf_counter() - t0
+    differ = []
+    for name in CHAIN_EQUALS_ASSEMBLE:
+        with open(os.path.join(wd, name), "rb") as f, \
+                open(os.path.join(asm, assemble_name(name)), "rb") as g:
+            if f.read() != g.read():
+                differ.append(name)
+    n_wide = check_byte_traces(wd, asm, rs, res["draft"])
+    if set(differ) - set(LAS_ROUNDTRIP_FILES) or (differ and not n_wide):
+        raise AssertionError(f"chain files differ from assemble()'s: {differ}")
+    log(f"[surface] byte-equal to assemble(db=)'s files: " + ", ".join(
+        n for n in CHAIN_EQUALS_ASSEMBLE if n not in differ))
+    log(f"[surface] map alignments with trace values > 255: {n_wide}; "
+        f"differing from assemble(db=)'s: {differ or 'none'}; the chain's "
+        f"consensus equals the consensus of assemble()'s alignments with "
+        f"byte traces, assemble()'s that of the same alignments unwrapped, "
+        f"and each GFA follows from its consensus")
+    cons = read_fasta(os.path.join(wd, "X.consensus.fasta"))
+    _check_assembly("surface", {"contigs": [
+        (cons.names[i], cons.get_seq(i)) for i in range(cons.n_reads)]})
+    _check_assembly("surface assemble", res)
+    log(f"[surface] chain wall {chain_wall:.3f}s vs assemble(db=) wall "
+        f"{asm_wall:.3f}s; fresh-process draft {fresh_wall:.3f}s")
+    return launches
+
+
+#: the chain's files that pass through draft.las, whose trace values are
+#: bytes (tspace <= 125): a map alignment with a trace value > 255 comes
+#: back wrapped (value & 0xFF), in hinge_tpu's write_las as in the port's,
+#: while assemble() keeps the alignments in memory
+LAS_ROUNDTRIP_FILES = ("X.consensus.fasta", "X_consensus.gfa")
+
+
+def check_byte_traces(wd, asm, rs, draft):
+    """The consensus verb's input is assemble()'s map alignments after the
+    .las byte traces: the chain's X.consensus.fasta equals run_consensus
+    on those alignments with every trace value wrapped to a byte, and
+    assemble()'s equals it on the same alignments unwrapped; each
+    X_consensus.gfa equals run_gfa on assemble()'s draft graph with its own
+    consensus.  Returns the count of trace values > 255."""
+    from hinge_tpu_torch.config import nominal_config
+    from hinge_tpu_torch.data.overlaps import str_to_codes
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.stages.consensus import run_consensus
+    from hinge_tpu_torch.stages.gfa import run_gfa
+
+    aln = map_reads_to_targets([str_to_codes(seq) for _, seq in draft], rs)
+    n_wide = int((aln.trace > 255).sum())
+    byte_aln = aln.take(np.arange(aln.n))
+    byte_aln.trace = aln.trace.astype(np.uint8).astype(aln.trace.dtype)
+    for tag, a, path in (("chain", byte_aln, os.path.join(wd, "X.consensus.fasta")),
+                         ("assemble()", aln, os.path.join(asm, "asm.consensus.fasta"))):
+        want = os.path.join(os.path.dirname(path), "check.consensus.fasta")
+        run_consensus(draft, rs, a, nominal_config(), out_fasta=want,
+                      device="cuda")
+        with open(want, "rb") as f, open(path, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{tag} consensus is not that of the map "
+                                     "alignments it was given")
+        got = os.path.join(os.path.dirname(path), "check.gfa")
+        run_gfa(os.path.join(asm, "asm_draft.graphml"),
+                os.path.join(asm, "draft_map.txt"), path, out_gfa=got)
+        gfa = path.replace(".consensus.fasta", "_consensus.gfa")
+        with open(got, "rb") as f, open(gfa, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{tag} GFA does not follow from its consensus")
+    return n_wide
+
+
 def phase_main_block(block, parent):
     """The largest band-NW block of phase 5 (the launch size and the
     window lengths of the main path): kernels vs twins, times, bounds."""
@@ -740,6 +1050,8 @@ def main():
         del ov
         fasta_launches, vote_ops = phase_fasta_only(tmp, fasta)
         ops += vote_ops
+        surface_launches = phase_hinge_surface(
+            tmp, rs, os.path.join(tmp, "reads.las"))
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "windows_per_launch": per_launch,
@@ -751,6 +1063,8 @@ def main():
     ]
     log(f"[fasta] kernel launches of the fasta-only path: "
         f"{ {k: fasta_launches[k] for k in KERNELS} }")
+    log(f"[surface] kernel launches of the draft verb: "
+        f"{ {k: surface_launches[k] for k in KERNELS} }")
     print(json.dumps({"device_ops": ops}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

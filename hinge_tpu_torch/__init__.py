@@ -10,6 +10,8 @@ relative names, each naming its source; it imports neither jax nor
 hinge_tpu.
 
 Every device op takes an explicit device, threaded down from
-`pipeline.assemble(..., device="cuda")`.  The CPU runs only when a caller
-passes device="cpu"; asking for CUDA without a card raises.
+`pipeline.assemble(..., device="cuda")` or a `cli` verb's --device.  The
+CPU runs only when a caller passes device="cpu"; asking for CUDA without a
+card raises `device.DeviceError`.  `cli` has every `hinge` verb of
+hinge_tpu's CLI, and `hinge` is bin/hinge's verb table over them.
 """

@@ -14,14 +14,27 @@ import torch
 #: opt-in switches of hinge_tpu whose device code is not ported yet, with
 #: the ROADMAP queue item that ports it
 _UNPORTED_SWITCHES = {
-    "HINGE_SHARDED": "ROADMAP queue item 6 (sharding/distributed with NCCL)",
+    "HINGE_SHARDED": "ROADMAP queue item 4 (sharding/distributed with NCCL)",
 }
 
 
+class DeviceError(RuntimeError):
+    """The device cannot run the port's work: no CUDA card, or a kernel
+    that fails to build or launch.  Callers that record a failed piece of
+    work and go on (the accuracy sweep) let this propagate instead."""
+
+
+def is_device_error(e: BaseException) -> bool:
+    """True for a DeviceError or an error that torch raised from the card
+    (a CUDA runtime error or an out-of-memory)."""
+    return isinstance(e, (DeviceError, torch.cuda.OutOfMemoryError,
+                          getattr(torch, "AcceleratorError", DeviceError)))
+
+
 def require_cuda() -> None:
-    """Raise unless a CUDA device is present."""
+    """Raise DeviceError unless a CUDA device is present."""
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceError(
             "hinge_tpu_torch: device='cuda' but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain torch versions")
 

@@ -4,7 +4,8 @@ At first use, `nvcc` compiles each `csrc/*.cu` for sm_90a into a shared
 library of its own with a plain C interface under `hinge_tpu_torch/build/`
 (listed in .gitignore), one compiler process per source, all started
 together; `ctypes` binds them.  Nothing is built at import time, and a
-failed build raises: there is no fallback to another implementation.
+failed build raises DeviceError: there is no fallback to another
+implementation.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import subprocess
 import threading
 import time
 import types
+
+from hinge_tpu_torch.device import DeviceError
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -42,7 +45,7 @@ def _nvcc() -> str:
                               "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("hinge_tpu_torch: nvcc not found (set CUDA_HOME); "
+    raise DeviceError("hinge_tpu_torch: nvcc not found (set CUDA_HOME); "
                        "the CUDA kernels cannot be built")
 
 
@@ -73,7 +76,7 @@ def compile_sources(sources, build_dir: str) -> dict:
         os.replace(tmp, lib)
         report.append(err)
     if failed:
-        raise RuntimeError("hinge_tpu_torch: nvcc failed:\n" + "\n".join(failed))
+        raise DeviceError("hinge_tpu_torch: nvcc failed:\n" + "\n".join(failed))
     if procs:
         build_info.update(seconds=time.perf_counter() - t0,
                           cmds=[" ".join(c) for c, *_ in procs.values()],
@@ -95,7 +98,7 @@ def bind(libs: dict) -> types.SimpleNamespace:
                 fns[name] = fn
     missing = set(SIGNATURES) - set(fns)
     if missing:
-        raise RuntimeError(f"hinge_tpu_torch: kernels missing: {sorted(missing)}")
+        raise DeviceError(f"hinge_tpu_torch: kernels missing: {sorted(missing)}")
     return types.SimpleNamespace(**fns)
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from hinge_tpu_torch.ops.myers import align_full
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import DeviceError, to_device
 from hinge_tpu_torch.ops._build import load_kernels
 
 GAP = 4
@@ -144,7 +144,7 @@ def launch_band_fill(q, t, m, n, mrows: int) -> torch.Tensor:
             q.data_ptr(), q.stride(0), t.data_ptr(), t.stride(0),
             m.data_ptr(), n.data_ptr(), moves.data_ptr(), B, mrows, stream)
     if err:
-        raise RuntimeError(f"band_fill kernel launch failed: cudaError {err}")
+        raise DeviceError(f"band_fill kernel launch failed: cudaError {err}")
     launches["band_fill"] += 1
     return moves
 
@@ -206,7 +206,7 @@ def row_traceback(moves, m, n):
             moves.data_ptr(), m.data_ptr(), n.data_ptr(), cnts.data_ptr(),
             mv0s.data_ptr(), j_rem.data_ptr(), B, mrows, stream)
     if err:
-        raise RuntimeError(
+        raise DeviceError(
             f"row_traceback kernel launch failed: cudaError {err}")
     launches["row_traceback"] += 1
     return cnts, mv0s, j_rem

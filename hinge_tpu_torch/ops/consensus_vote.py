@@ -15,7 +15,7 @@ read's alignment rows are one flat column vector per chunk, and
 Integer-exact: the tables equal `stages/consensus.py::_vote_tallies` and
 hinge_tpu's device vote bit for bit.  Shapes are dynamic, so there are no
 pow2 buckets; chunks of whole reads keep the device working set bounded.
-The multi-chip `sharded_vote_tallies` is not ported (ROADMAP queue item 6).
+The multi-chip `sharded_vote_tallies` is not ported (ROADMAP queue item 4).
 """
 
 from __future__ import annotations

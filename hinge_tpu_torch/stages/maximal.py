@@ -4,7 +4,8 @@ Port of `hinge_tpu/stages/maximal.py` (reference `src/maximal/maximal.cpp`)
 with its imports swapped: the per-pair top-2 selection and the
 containment sweep are host code; the trim runs in the native library, or
 as the trim lattice on the stage's device when that library is missing.
-Outputs X.max and X.contained.txt.
+Outputs X.max and X.contained.txt; `read_mas` (copied verbatim) reads X.mas
+back for the maximal and layout verbs of the CLI.
 """
 
 from __future__ import annotations
@@ -60,6 +61,16 @@ def _native_sweep(a_ids, b_ids, is_bcovera, active):
 class MaximalResult:
     active: np.ndarray  # bool [n_reads] after containment removal
     contained: List[Tuple[int, int]]  # (read, containing_read)
+
+
+def read_mas(path: str, n_reads: int) -> Tuple[np.ndarray, np.ndarray]:
+    eff = np.zeros((n_reads, 2), dtype=np.int32)
+    with open(path) as f:
+        for line in f:
+            t = line.split()
+            if len(t) >= 3:
+                eff[int(t[0])] = (int(t[1]), int(t[2]))
+    return eff[:, 0].copy(), eff[:, 1].copy()
 
 
 def run_maximal(

@@ -41,7 +41,9 @@ SUBPACKAGES = ("data", "graph", "io", "native", "ops", "overlap", "stages",
 
 def test_filter_stage_runs_without_loading_jax(tmp_path):
     """Import every module of the port, run the filter stage on the CPU
-    in a fresh interpreter, and check that jax never got loaded."""
+    in a fresh interpreter, then the filter verb of the `hinge` verb table
+    on the same reads (written as FASTA + .las), and check that neither
+    jax nor hinge_tpu got loaded."""
     code = f"""
 import importlib, pkgutil, sys
 import hinge_tpu_torch
@@ -62,6 +64,16 @@ _, _, rs, ov = simulate(SimParams(genome_len=20_000, coverage=10.0,
 res = run_filter(rs, [ov], nominal_config(), out_prefix={str(tmp_path / 'F')!r},
                  device="cpu")
 assert res.maskvec.shape == (rs.n_reads, 2)
+from hinge_tpu_torch.hinge import main as hinge_main
+from hinge_tpu_torch.io.fasta import write_fasta
+from hinge_tpu_torch.io.las import write_las
+fasta, las = {str(tmp_path / 'r.fasta')!r}, {str(tmp_path / 'r.las')!r}
+write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+write_las(las, ov)
+assert hinge_main(["filter", "--fasta", fasta, "--las", las, "-x",
+                   {str(tmp_path / 'V')!r}, "--device", "cpu"]) == 0
+assert open({str(tmp_path / 'V.mas')!r}).read() == \
+    open({str(tmp_path / 'F.mas')!r}).read()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not [m for m in sys.modules if m.split(".")[0] == "hinge_tpu"]
 print("NOJAX_OK")
