@@ -1,6 +1,6 @@
 """Quickest proof that the torch/CUDA port runs on a card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR] [--k3-sweep]
 
 Runs hinge_tpu_torch on one CUDA card, phase by phase; any failure raises
 and the exit code is nonzero:
@@ -55,13 +55,33 @@ and the exit code is nonzero:
              CHAIN_EQUALS_ASSEMBLE files byte-equal to the chain's, with a
              consensus contig >= 0.9 of the genome.  Prints per-verb walls,
              the chain's wall against assemble()'s, the fresh draft's wall
-             and peak device memory.
+             and peak device memory;
+9. sharded — the mesh path, logical shards on the card: (a) the eight
+             families of parallel/dryrun.dryrun_multichip(4) on cuda, each
+             equal to the port's single-device op (the window aligner
+             launching K3); (b) filter, maximal and layout on phase 5's
+             reads and .las with HINGE_SHARDED=1 and HINGE_MESH_SHARDS=4,
+             whose 12 stage files must be byte-equal to phase 5's, each
+             stage's wall printed beside phase 5's; (c) K3 (wave_align) on
+             every ladder window phase 5's draft handed to the band-NW
+             aligner, whose rows must equal the C DW_banded rows
+             (myers.align_exact_batch) byte for byte, through
+             run_sharded_wave_align over 4 shards of the card (one K3
+             launch a shard), then K3 bit-equal to its twin on shard 0's
+             block and on a 256-window block of the same CUDA tensors;
+             prints K3's time per launch, the twin's on the same block, the
+             bound, the share, the launches and peak device memory (with
+             `--k3-sweep`, also K3's time at several launch sizes, which
+             chose wavefront.WAVE_BATCH); (d) the
+             sharded filter step across processes on NCCL, one rank per
+             card with 2 logical shards each, whose masks must equal the
+             single-device masks.
 
 Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
 launches and windows per launch of phase 5, phase 3's numbers beside
-them) and, last, the device line {"ok": true, "device": {...}}.
-Imports no jax.
+them; K3's from phase 9) and, last, the device line {"ok": true,
+"device": {...}}.  Imports no jax.
 """
 
 import json
@@ -87,7 +107,11 @@ KERNELS = {
                   "hinge_tpu/ops/pallas_band_nw.py:88"),
     "row_traceback": ("hinge_tpu_torch/csrc/row_traceback.cu",
                       "hinge_tpu/ops/pallas_band_nw.py:231"),
+    "wave_align": ("hinge_tpu_torch/csrc/wave_align.cu",
+                   "hinge_tpu/ops/wavefront.py:75"),
 }
+#: the kernels phases 3 and 5 check and time (K3 is phase 9's)
+BAND_NW = ("band_fill", "row_traceback")
 
 #: the stage files that hinge_tpu's per-stage CLI chain and its
 #: assemble(db=, las=) write byte-equal (tests/test_torch_cli.py shows it on
@@ -523,6 +547,27 @@ class _BlockSpy:
         self.module.band_fill = self.fn
 
 
+class _WindowSpy:
+    """Keeps every ladder window the draft stage hands to band_align_batch
+    (the windows phase 9 aligns with K3)."""
+
+    def __init__(self, module):
+        self.module, self.fn = module, module.band_align_batch
+        self.qs, self.ts = [], []
+
+    def __enter__(self):
+        def spy(qs, ts, **kw):
+            self.qs.extend(qs)
+            self.ts.extend(ts)
+            return self.fn(qs, ts, **kw)
+
+        self.module.band_align_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.band_align_batch = self.fn
+
+
 def phase_golden():
     from tests import torch_golden
 
@@ -584,7 +629,7 @@ def phase_real_size(tmp):
     _zero(BN.launches)
     before = timings()
     torch.cuda.reset_peak_memory_stats()
-    with _BlockSpy(BN) as spy:
+    with _BlockSpy(BN) as spy, _WindowSpy(BN) as windows:
         t0 = time.perf_counter()
         res = assemble(fasta=fasta, las=las, workdir=os.path.join(tmp, "asm"),
                        device="cuda", log=lambda *a: None)
@@ -592,14 +637,16 @@ def phase_real_size(tmp):
         wall = time.perf_counter() - t0
     launches = dict(BN.launches)
     peak = torch.cuda.max_memory_allocated()
+    stages = _stage_diff(before)
     log(f"[real] assemble wall {wall:.3f}s; stages "
-        + ", ".join(f"{k} {v:.3f}s" for k, v in _stage_diff(before).items()))
+        + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items()))
     log(f"[real] peak device memory {peak} bytes; kernel launches {launches}; "
         f"{spy.windows} band-NW windows, launch size {BN.MAX_BATCH}")
     _check_assembly("real", res)
     _check_launches("real", launches)
     per_launch = spy.windows / max(launches["band_fill"], 1)
-    return launches, per_launch, spy.block, rs, ov, fasta
+    return (launches, per_launch, spy.block, rs, ov, fasta, stages,
+            (windows.qs, windows.ts))
 
 
 def _assert_stores_equal(a, b):
@@ -1035,6 +1082,333 @@ def phase_main_block(block, parent):
     return check_block("block", q, t, m, n, mrows, parent, twin_reps=1)
 
 
+#: phase 9's logical shards on the card
+MESH_SHARDS = 4
+#: the stage files of filter, maximal and layout (the 12 of
+#: tests/test_sharded_stage_parity.py), after phase 5's prefix "asm"
+SHARDED_STAGE_FILES = tuple("asm." + s for s in (
+    "mas", "cmas", "repeat.txt", "hinges.txt", "cov.flag", "self.flag",
+    "coverage.txt", "max", "contained.txt", "edges.hinges", "edges.hinges2",
+    "hinge.list"))
+#: integer operations K3 needs per live diagonal (k and the lane test, the
+#: tie rule's two V reads and compare, x0 and y0, the snake's bounds test,
+#: the history and V stores, the end test, u, the best-m and band-edge
+#: candidates) and per snake byte compare (two clipped indices, two loads,
+#: the compare, the count), counted from csrc/wave_align.cu
+WAVE_OPS_PER_DIAGONAL = 30
+WAVE_OPS_PER_COMPARE = 6
+#: the block on which K3 is held bit-equal to its twin and both are timed
+TWIN_BLOCK = 256
+
+
+def phase_sharded_families():
+    """Phase 9a: the eight families over MESH_SHARDS logical shards on the
+    card, each equal to the port's single-device op."""
+    from hinge_tpu_torch.ops import wavefront as W
+    from hinge_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    _zero(W.launches)
+    t0 = time.perf_counter()
+    checked = dryrun_multichip(MESH_SHARDS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(W.launches)
+    log(f"[sharded] dryrun_multichip({MESH_SHARDS}) on cuda: every family "
+        f"equal to the single-device op ({checked}); {wall:.3f}s; "
+        f"launches {launches}")
+    _check_launches("sharded families", launches)
+    return wall
+
+
+def phase_sharded_stages(tmp, fasta, las, p5_stages):
+    """Phase 9b: filter, maximal and layout with HINGE_SHARDED=1 over
+    MESH_SHARDS logical shards of the card; the 12 stage files must be
+    byte-equal to phase 5's."""
+    from hinge_tpu_torch.config import nominal_config
+    from hinge_tpu_torch.io.fasta import read_fasta
+    from hinge_tpu_torch.io.las import read_las
+    from hinge_tpu_torch.parallel.sharding import stage_mesh
+    from hinge_tpu_torch.stages import filter as SF
+    from hinge_tpu_torch.stages import layout as SL
+    from hinge_tpu_torch.stages import maximal as SM
+
+    wd = os.path.join(tmp, "sharded")
+    os.makedirs(wd)
+    p = os.path.join(wd, "asm")
+    os.environ["HINGE_SHARDED"] = "1"
+    os.environ["HINGE_MESH_SHARDS"] = str(MESH_SHARDS)
+    try:
+        mesh = stage_mesh("cuda")
+        if mesh is None or mesh.size != MESH_SHARDS or any(
+                d.type != "cuda" for _, d in mesh.local_shards()):
+            raise AssertionError(f"HINGE_SHARDED=1 gave no {MESH_SHARDS}-shard "
+                                 "mesh on the card")
+        t0 = time.perf_counter()
+        rs = read_fasta(fasta)
+        parts = [read_las(las, read_lengths=rs.length)]
+        read_wall = time.perf_counter() - t0
+        cfg = nominal_config()
+        walls = {}
+        torch.cuda.reset_peak_memory_stats()
+        with _Timed(SF, "run_sharded_profiles") as prof, \
+                _Timed(SM, "sharded_top_k_per_pair") as topk, \
+                _Timed(SL, "run_sharded_matching_position") as mpos:
+            t0 = time.perf_counter()
+            fres = SF.run_filter(rs, parts, cfg, out_prefix=p, device="cuda")
+            torch.cuda.synchronize()
+            walls["filter"] = time.perf_counter() - t0
+            eff_s = fres.maskvec[:, 0].astype(np.int32)
+            eff_e = fres.maskvec[:, 1].astype(np.int32)
+            t0 = time.perf_counter()
+            mres = SM.run_maximal(rs, parts, cfg, eff_s, eff_e, out_prefix=p,
+                                  has_db=True, device="cuda")
+            torch.cuda.synchronize()
+            walls["maximal"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            SL.run_layout(rs, parts, cfg, eff_s, eff_e, mres.active,
+                          SL.load_marked(p + ".repeat.txt"),
+                          SL.load_marked(p + ".hinges.txt"), out_prefix=p,
+                          filter_prefix=p, has_db=True, device="cuda")
+            torch.cuda.synchronize()
+            walls["layout"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.environ.pop("HINGE_SHARDED", None)
+        os.environ.pop("HINGE_MESH_SHARDS", None)
+    # the layout queries matching positions only for hinged reads with
+    # matches (none on a genome without repeats); 9a runs that family
+    calls = {"profiles": prof.calls, "top_k": topk.calls,
+             "matching_position": mpos.calls}
+    if not (prof.calls and topk.calls):
+        raise AssertionError(f"the stages skipped the mesh: {calls}")
+    differ = []
+    for name in SHARDED_STAGE_FILES:
+        with open(os.path.join(tmp, "asm", name), "rb") as f, \
+                open(os.path.join(wd, name), "rb") as g:
+            if f.read() != g.read():
+                differ.append(name)
+    if differ:
+        raise AssertionError(f"sharded stage files differ from phase 5's: {differ}")
+    log(f"[sharded] HINGE_SHARDED=1 over {MESH_SHARDS} shards of cuda "
+        f"({mesh.shape}): {len(SHARDED_STAGE_FILES)} stage files byte-equal "
+        f"to phase 5's; mesh calls {calls}")
+    log("[sharded] stage walls (phase 5's beside): " + ", ".join(
+        f"{k} {v:.3f}s ({p5_stages.get(k, 0.0):.3f}s)" for k, v in walls.items())
+        + f"; input read {read_wall:.3f}s; peak device memory {peak} bytes")
+    return walls
+
+
+def wave_bound(stats, d_fin, m, n):
+    """Least time for K3 on one block, from the twin's path on it: the true
+    bytes of q and t read once, m/n read and the terminal state written
+    once, the history of every live step (an int16 x per live diagonal and
+    the two int16 band edges) and the path points up to d_fin written once;
+    the integer operations of every live diagonal and every snake byte
+    compare."""
+    B = int(m.numel())
+    nbytes = (int((m.to(torch.int64) + n).sum()) + 8 * B + 13 * B
+              + 2 * stats["diagonals"] + 4 * stats["steps"]
+              + 16 * int((d_fin.to(torch.int64) + 1).sum()))
+    nops = (WAVE_OPS_PER_DIAGONAL * stats["diagonals"]
+            + WAVE_OPS_PER_COMPARE * stats["compares"])
+    return _bound(nbytes, nops, INT32_OPS_S)
+
+
+def _wave_block(qs, ts, sel):
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.ops import wavefront as W
+
+    q, t, m, n, max_d, kb = W.pack_block([qs[i] for i in sel],
+                                         [ts[i] for i in sel])
+    return [to_device(a, "cuda") for a in (q, t, m, n)], max_d, kb
+
+
+def _wave_shard_block(qs, ts, shards):
+    """Shard 0's block of run_sharded_wave_align over `shards` shards, cut
+    as it cuts it: the batch padded with empty windows to a multiple of the
+    shard count, packed as one block (one L and one max_d), one contiguous
+    slice a shard."""
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.ops import wavefront as W
+
+    pad = (-len(qs)) % shards
+    empty = [np.zeros(0, np.uint8)] * pad
+    q, t, m, n, max_d, kb = W.pack_block(list(qs) + empty, list(ts) + empty)
+    per = len(m) // shards
+    return [to_device(a[:per], "cuda") for a in (q, t, m, n)], max_d, kb
+
+
+def _k3_twin_check(args, max_d, kb):
+    """K3 against its twin on the same CUDA tensors: the terminal state,
+    and px/py up to 2*d_fin+2.  Returns (max_abs_err, twin outputs, stats
+    of the twin's path)."""
+    from hinge_tpu_torch.ops import wavefront as W
+
+    got = W.launch_wave_align(*args, 150, max_d=max_d, kb=kb)
+    stats = dict(steps=0, diagonals=0, compares=0)
+    fwd = W.wave_forward_ref(*args, 150, max_d=max_d, kb=kb, stats=stats)
+    px, py = W.wave_backtrack_ref(*fwd, max_d=max_d)
+    want = (px, py, *fwd[3:])
+    torch.cuda.synchronize()
+    err = 0
+    for name, g, w in zip(("aligned", "d_fin", "k_fin", "x_fin"), got[2:], want[2:]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K3 {name} differs from its twin")
+        err = max(err, _max_abs_err([g], [w]))
+    valid = (torch.arange(px.shape[1], device=px.device)[None, :]
+             < 2 * (want[3][:, None] + 1))
+    for name, g, w in zip(("px", "py"), got[:2], want[:2]):
+        if not torch.equal(torch.where(valid, g, 0), torch.where(valid, w, 0)):
+            raise AssertionError(f"K3 {name} differs from its twin")
+        err = max(err, _max_abs_err([g[valid]], [w[valid]]))
+    return err, want, stats
+
+
+def _k3_timed(args, max_d, kb):
+    """K3 held bit-equal to its twin on one block of CUDA tensors, then
+    timed beside it: (max_abs_err, K3 ms, twin ms, bound ms, bound_by,
+    the twin's path stats)."""
+    from hinge_tpu_torch.ops import wavefront as W
+
+    err, want, stats = _k3_twin_check(args, max_d, kb)
+    ms = _cuda_ms(lambda: W.launch_wave_align(*args, 150, max_d=max_d, kb=kb), 10)
+
+    def twin():
+        W.wave_backtrack_ref(*W.wave_forward_ref(*args, 150, max_d=max_d, kb=kb),
+                             max_d=max_d)
+
+    plain_ms = _cuda_ms(twin, 1)
+    b_ms, b_by = wave_bound(stats, want[3], args[2], args[3])
+    return err, ms, plain_ms, b_ms, b_by, stats
+
+
+def phase_wave_kernel(qs, ts):
+    """Phase 9c: every ladder window of phase 5's draft through the sharded
+    window aligner (run_sharded_wave_align over MESH_SHARDS shards of the
+    card, one K3 launch a shard), rows equal to the C DW_banded rows; K3
+    bit-equal to its twin on shard 0's block and on a 256-window block, and
+    timed beside it on both, with the bound, the share and the launches."""
+    from hinge_tpu_torch.ops import myers as MY
+    from hinge_tpu_torch.ops import wavefront as W
+    from hinge_tpu_torch.parallel.sharding import make_mesh, run_sharded_wave_align
+
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    _zero(W.launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = run_sharded_wave_align(mesh, qs, ts)
+    torch.cuda.synchronize()
+    k3_wall = time.perf_counter() - t0
+    launches = dict(W.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    c_rows = MY.align_exact_batch(qs, ts, 150)
+    c_wall = time.perf_counter() - t0
+    bad = [i for i, (g, w) in enumerate(zip(rows, c_rows))
+           if not (np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]))]
+    if bad:
+        raise AssertionError(f"K3 rows differ from the C DW_banded rows on "
+                             f"{len(bad)} windows, first {bad[:5]}")
+    n_aligned = sum(1 for r in rows if len(r[0]))
+    log(f"[wave] K3 rows equal to the C DW_banded rows on all {len(qs)} "
+        f"ladder windows ({n_aligned} aligned); run_sharded_wave_align over "
+        f"{MESH_SHARDS} shards of cuda {k3_wall:.3f}s (with host packing and "
+        f"row emission) vs C {c_wall:.3f}s; launches {launches}; peak device "
+        f"memory {peak} bytes")
+    if launches["wave_align"] != MESH_SHARDS:
+        raise AssertionError(f"wave: {launches['wave_align']} K3 launches, "
+                             f"want one for each of {MESH_SHARDS} shards")
+
+    # the main path's launch: shard 0's block
+    args, max_d, kb = _wave_shard_block(qs, ts, MESH_SHARDS)
+    B, L = args[0].shape
+    err, ms, plain_ms, b_ms, b_by, stats = _k3_timed(args, max_d, kb)
+    log(f"[wave] K3 on shard 0's block ({B} windows, max_d {max_d}, L {L}): "
+        f"bit-equal to its twin; {ms:.4f} ms per launch, twin {plain_ms:.4f} "
+        f"ms ({plain_ms / ms:.1f}x); bound {b_ms:.4f} ms by {b_by}, share "
+        f"{b_ms / ms:.4f}; twin path {stats}")
+    del args
+
+    # the twin beside K3 on the 256 longest windows
+    lens = np.array([len(q) + len(t) for q, t in zip(qs, ts)])
+    order = np.argsort(lens, kind="stable")
+    args, max_d, kb = _wave_block(qs, ts, order[-TWIN_BLOCK:])
+    e2, t_ms, t_plain, b2_ms, b2_by, _ = _k3_timed(args, max_d, kb)
+    err = max(err, e2)
+    log(f"[wave] {TWIN_BLOCK}-window block: K3 bit-equal to its twin; K3 "
+        f"{t_ms:.4f} ms, twin {t_plain:.4f} ms ({t_plain / t_ms:.1f}x); "
+        f"bound {b2_ms:.4f} ms by {b2_by}, share {b2_ms / t_ms:.4f}")
+    del args
+    if "--k3-sweep" in sys.argv:
+        wave_launch_sizes(qs, ts)
+    return {"launches": launches["wave_align"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / ms, "windows_per_launch": B,
+            "twin_block": {"windows": TWIN_BLOCK, "ms": t_ms, "plain_ms": t_plain,
+                           "bound_ms": b2_ms, "bound_by": b2_by,
+                           "share": b2_ms / t_ms}}
+
+
+def wave_launch_sizes(qs, ts):
+    """K3's time per 1024 windows at several launch sizes, on one seeded
+    sample of the ladder windows: what wavefront.WAVE_BATCH was chosen by
+    (`--k3-sweep` only)."""
+    from hinge_tpu_torch.ops import wavefront as W
+
+    rng = np.random.default_rng(3)
+    for count in (1024, 4096, 16384, 32768):
+        sel = rng.permutation(len(qs))[: min(count, len(qs))]
+        args, max_d, kb = _wave_block(qs, ts, sel)
+        ms = _cuda_ms(lambda: W.launch_wave_align(*args, 150, max_d=max_d, kb=kb), 3)
+        log(f"[wave] {len(sel)} windows per launch (max_d {max_d}): K3 "
+            f"{ms:.4f} ms ({ms * 1024 / len(sel):.4f} per 1024 windows)")
+        del args
+
+
+def phase_nccl():
+    """Phase 9d: the sharded filter step across processes on NCCL, one
+    rank per card with 2 logical shards each; the all-gathered masks must
+    equal the single-device masks."""
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.parallel.dryrun import (
+        _filter_chain, run_multiprocess, worker_inputs,
+    )
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    masks, lines = run_multiprocess(world, "cuda")
+    wall = time.perf_counter() - t0
+    if not all("backend=nccl" in line for line in lines):
+        raise AssertionError(f"the ranks did not run on NCCL: {lines}")
+    a_id, a_start, a_end, read_len, nb = worker_inputs()
+    _, ms, mev, _ = _filter_chain(
+        *(to_device(x, "cuda") for x in (a_id, a_start, a_end)),
+        n_reads=len(read_len), nb=nb)
+    want = np.stack([ms.cpu().numpy(), mev.cpu().numpy()], 1)
+    if not all(np.array_equal(m, want) for m in masks):
+        raise AssertionError("NCCL masks differ from the single-device masks")
+    log(f"[nccl] world {world} (one rank per card, 2 logical shards each): "
+        f"masks equal to the single-device masks on every rank; "
+        + "; ".join(lines) + f"; {wall:.3f}s with process start-up")
+    return wall
+
+
+def phase_sharded(tmp, fasta, las, p5_stages, windows):
+    """Phase 9: the mesh path on the card (9a-9d)."""
+    t0 = time.perf_counter()
+    walls = {"families": phase_sharded_families()}
+    t1 = time.perf_counter()
+    phase_sharded_stages(tmp, fasta, las, p5_stages)
+    walls["stages"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    k3 = phase_wave_kernel(*windows)
+    walls["wave"] = time.perf_counter() - t1
+    walls["nccl"] = phase_nccl()
+    log(f"[sharded] phase 9 wall {time.perf_counter() - t0:.3f}s: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in walls.items()))
+    return k3
+
+
 def main():
     phase_device()
     phase_build()
@@ -1042,7 +1416,8 @@ def main():
         parent = ParentKernels(tmp)
         errs, p3 = phase_kernels(parent)
         phase_golden()
-        launches, per_launch, block, rs, ov, fasta = phase_real_size(tmp)
+        (launches, per_launch, block, rs, ov, fasta, p5_stages,
+         windows) = phase_real_size(tmp)
         block_errs, main = phase_main_block(block, parent)
         del block
         ops = phase_device_join(rs)
@@ -1050,21 +1425,27 @@ def main():
         del ov
         fasta_launches, vote_ops = phase_fasta_only(tmp, fasta)
         ops += vote_ops
-        surface_launches = phase_hinge_surface(
-            tmp, rs, os.path.join(tmp, "reads.las"))
+        las = os.path.join(tmp, "reads.las")
+        surface_launches = phase_hinge_surface(tmp, rs, las)
+        k3 = phase_sharded(tmp, fasta, las, p5_stages, windows)
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1],
          "launches": launches[name], "windows_per_launch": per_launch,
          "max_abs_err": max(errs[name], block_errs[name]),
          **main[name], "library_ms": None,
          "phase3": {k: p3[name][k] for k in ("ms", "prev_ms", "plain_ms",
                                               "bound_ms", "bound_by", "share")}}
-        for name, (src, tpu) in KERNELS.items()
+        for name in BAND_NW
     ]
+    kernels.append({"name": "wave_align", "route": "cuda",
+                    "source": KERNELS["wave_align"][0],
+                    "replaces": KERNELS["wave_align"][1], **k3,
+                    "library_ms": None})
     log(f"[fasta] kernel launches of the fasta-only path: "
-        f"{ {k: fasta_launches[k] for k in KERNELS} }")
+        f"{ {k: fasta_launches[k] for k in BAND_NW} }")
     log(f"[surface] kernel launches of the draft verb: "
-        f"{ {k: surface_launches[k] for k in KERNELS} }")
+        f"{ {k: surface_launches[k] for k in BAND_NW} }")
     print(json.dumps({"device_ops": ops}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

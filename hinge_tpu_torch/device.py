@@ -6,16 +6,8 @@ a card gets an error, never a silent CPU run.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
-
-#: opt-in switches of hinge_tpu whose device code is not ported yet, with
-#: the ROADMAP queue item that ports it
-_UNPORTED_SWITCHES = {
-    "HINGE_SHARDED": "ROADMAP queue item 4 (sharding/distributed with NCCL)",
-}
 
 
 class DeviceError(RuntimeError):
@@ -53,11 +45,3 @@ def resolve_device(device) -> torch.device:
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Copy a numpy array onto `device` with its dtype unchanged."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def refuse_unported(name: str) -> None:
-    """Raise NotImplementedError when the opt-in switch `name` is on."""
-    if os.environ.get(name, "0") == "1":
-        raise NotImplementedError(
-            f"{name}=1 reaches device code that hinge_tpu_torch has not "
-            f"ported yet: {_UNPORTED_SWITCHES[name]}")

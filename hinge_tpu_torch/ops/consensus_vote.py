@@ -15,7 +15,8 @@ read's alignment rows are one flat column vector per chunk, and
 Integer-exact: the tables equal `stages/consensus.py::_vote_tallies` and
 hinge_tpu's device vote bit for bit.  Shapes are dynamic, so there are no
 pow2 buckets; chunks of whole reads keep the device working set bounded.
-The multi-chip `sharded_vote_tallies` is not ported (ROADMAP queue item 4).
+Chunks are independent reads, so `sharded_vote_tallies` spreads them over
+a mesh (parallel/sharding.py) with one psum of the tables.
 """
 
 from __future__ import annotations
@@ -92,6 +93,66 @@ def vote_chunk(scores, cov, ins_score, ins_scores, flat_a, flat_b, seg_off,
     cov.index_add_(0, pm, torch.ones_like(pm, dtype=torch.int32))
     ins_score.index_add_(0, pi, torch.ones_like(pi, dtype=torch.int32))
     ins_scores.index_add_(0, pi * 5 + bi, torch.ones_like(pi, dtype=torch.int32))
+
+
+def sharded_vote_tallies(
+    mesh, flat_a: np.ndarray, flat_b: np.ndarray, seg_len: np.ndarray,
+    pos0: np.ndarray, alen: int, chop: int = 100,
+    alen_bucket: int = 1 << 14,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Multi-device consensus vote: reads split into one chunk per mesh
+    shard (data parallelism — chunks are independent reads), each shard
+    tallies its chunk with vote_chunk, and the four tables combine with ONE
+    psum over the mesh.  Equal to stages/consensus._vote_tallies.  Port of
+    hinge_tpu's `sharded_vote_tallies`: the column-balanced groups and the
+    padding are its own."""
+    n_dev = mesh.size
+    n = int(seg_len.size)
+    seg_len = np.asarray(seg_len, np.int64)
+    seg_off = np.zeros(n + 1, np.int64)
+    np.cumsum(seg_len, out=seg_off[1:])
+    total = int(seg_off[-1])
+    # split segments into n_dev column-balanced contiguous groups
+    cuts = [0]
+    for d_i in range(1, n_dev):
+        cuts.append(int(np.searchsorted(seg_off, d_i * total // n_dev, "left")))
+    cuts.append(n)
+    cpad = _pad_pow2(max(
+        (int(seg_off[b] - seg_off[a]) for a, b in zip(cuts[:-1], cuts[1:])),
+        default=1) or 1, lo=256)
+    npad = _pad_pow2(max(
+        (b - a for a, b in zip(cuts[:-1], cuts[1:])), default=1) or 1, lo=16)
+    fa = np.full((n_dev, cpad), GAP, np.uint8)
+    fb = np.full((n_dev, cpad), GAP, np.uint8)
+    so = np.zeros((n_dev, npad + 1), np.int64)
+    p0 = np.zeros((n_dev, npad), np.int64)
+    for d_i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        lo_c, hi_c = int(seg_off[a]), int(seg_off[b])
+        fa[d_i, : hi_c - lo_c] = flat_a[lo_c:hi_c]
+        fb[d_i, : hi_c - lo_c] = flat_b[lo_c:hi_c]
+        so[d_i, :] = hi_c - lo_c
+        so[d_i, : b - a + 1] = seg_off[a : b + 1] - lo_c
+        p0[d_i, : b - a] = pos0[a:b]
+
+    alen_pad = ((alen + alen_bucket - 1) // alen_bucket) * alen_bucket
+    tables = []
+    for i, dev in mesh.local_shards():
+        z = lambda k: torch.zeros(k, dtype=torch.int32, device=dev)  # noqa: E731
+        t = (z(alen_pad * 5), z(alen_pad), z(alen_pad), z(alen_pad * 5))
+        vote_chunk(*t, *(to_device(x[i], dev) for x in (fa, fb, so, p0)),
+                   alen, chop)
+        tables.append(torch.cat(t))
+    s, c, i1, i5 = (x.cpu().numpy() for x in torch.split(
+        mesh.psum_all(tables), [alen_pad * 5, alen_pad, alen_pad, alen_pad * 5]))
+    return (s[: alen * 5].reshape(alen, 5), c[:alen], i1[:alen],
+            i5[: alen * 5].reshape(alen, 5))
+
+
+def _pad_pow2(n: int, lo: int = 1024) -> int:
+    p = lo
+    while p < n:
+        p *= 2
+    return p
 
 
 def vote_tallies_device(

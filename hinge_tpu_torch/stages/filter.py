@@ -19,8 +19,9 @@ import torch
 
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import refuse_unported, to_device
+from hinge_tpu_torch.device import to_device
 from hinge_tpu_torch.ops import coverage as C
+from hinge_tpu_torch.parallel.sharding import run_sharded_profiles, stage_mesh
 
 
 @dataclasses.dataclass
@@ -139,11 +140,37 @@ class _ResidentProfiles:
 
 def _device_profiles(ov, sel, r_begin, n_chunk, nb, reso, cut_off, device):
     """Coverage grids for a contiguous read range, chunked over reads.
-    Returns (profiles, ne, ne_cut) with the grids resident on `device`."""
-    refuse_unported("HINGE_SHARDED")
+    Returns (profiles, ne, ne_cut) with the grids resident on `device`.
+
+    HINGE_SHARDED=1 routes the scatter/cumsum chain over the device mesh
+    (psum/pmax collectives, parallel/sharding.py) when the mesh has two or
+    more shards; the outputs are equal, so the stage files are too."""
     a_rel_all = (ov.a_id[sel] - r_begin).astype(np.int32)
     a_s_all = ov.a_start[sel].astype(np.int32)
     a_e_all = ov.a_end[sel].astype(np.int32)
+
+    mesh = stage_mesh(device)
+    if mesh is not None:
+        cov, cov_cut, ne, ne_cut = run_sharded_profiles(
+            a_rel_all, a_s_all, a_e_all, n_chunk, mesh,
+            nb=nb, reso=reso, cut_off=cut_off)
+        chunks = []
+        for base in range(0, n_chunk, CHUNK_READS):
+            hi = min(base + CHUNK_READS, n_chunk)
+            padded = []
+            for grid in (cov, cov_cut):
+                p = np.zeros((CHUNK_READS, nb), np.int32)
+                p[: hi - base] = grid[base:hi]
+                padded.append(to_device(p, device))
+            for vec in (ne, ne_cut):
+                p = np.zeros(CHUNK_READS, np.int32)
+                p[: hi - base] = vec[base:hi]
+                padded.append(to_device(p, device))
+            chunks.append((base, hi, *padded))
+        prof = _ResidentProfiles(chunks, device)
+        prof._cov_np = cov
+        prof._cov_cut_np = cov_cut
+        return prof, ne, ne_cut
 
     ne = np.zeros(n_chunk, dtype=np.int32)
     ne_cut = np.zeros(n_chunk, dtype=np.int32)

@@ -39,6 +39,9 @@ from hinge_tpu_torch.ops import classify as CL
 from hinge_tpu_torch.ops.pairs import (
     ProcessedAlignments, _libstdcxx_orders, process_alignments,
 )
+from hinge_tpu_torch.parallel.sharding import (
+    run_sharded_matching_position, stage_mesh,
+)
 from hinge_tpu_torch.stages.maximal import _top_k
 
 FORWARD_TYPES = (CL.FORWARD, CL.FORWARD_INTERNAL)
@@ -106,7 +109,7 @@ def get_alignment(
         )
         sub = part.take(np.nonzero(keep)[0])
         k = 2 if lay.use_two_matches else 1
-        cand = _top_k(sub, k)
+        cand = _top_k(sub, k, device)
         pa = process_alignments(
             sub, cand, eff_start, eff_end, f.aln_threshold, f.theta, f.theta2,
             trim=has_db, device=device,
@@ -333,13 +336,22 @@ def run_layout(
         qa = np.array(queries, dtype=np.int64)
         ov_rows = pa.rows[qa[:, 2]]
         pos_a = np.array([hinges_vec[int(i)][int(k)][0] for i, k in zip(qa[:, 0], qa[:, 1])], dtype=np.int32)
-        dv = lambda a: to_device(a, device)  # noqa: E731
-        pos_b = CL.matching_position(
-            dv(ov_rows.astype(np.int32)), dv(pos_a),
-            dv(sub.a_start), dv(sub.a_end), dv(sub.b_start), dv(sub.b_end),
-            dv(sub.rc), dv(tw.npairs), dv(tw.pair_off), dv(tw.cum),
-            tspace=CL.TRIM_GRID,  # reference hardcodes the 100 grid
-        ).cpu().numpy()
+        mesh = stage_mesh(device)
+        if mesh is not None:
+            # HINGE_SHARDED=1: queries route to the mesh shard owning each
+            # overlap row — equal to the single-device op
+            pos_b = run_sharded_matching_position(
+                ov_rows.astype(np.int32), pos_a,
+                sub.a_start, sub.a_end, sub.b_start, sub.b_end, sub.rc,
+                tw, mesh, tspace=CL.TRIM_GRID)
+        else:
+            dv = lambda a: to_device(a, device)  # noqa: E731
+            pos_b = CL.matching_position(
+                dv(ov_rows.astype(np.int32)), dv(pos_a),
+                dv(sub.a_start), dv(sub.a_end), dv(sub.b_start), dv(sub.b_end),
+                dv(sub.rc), dv(tw.npairs), dv(tw.pair_off), dv(tw.cum),
+                tspace=CL.TRIM_GRID,  # reference hardcodes the 100 grid
+            ).cpu().numpy()
         slack = lay.matching_hinge_slack
         for qi in range(len(queries)):
             i, k, q, dr, _ = queries[qi]

@@ -17,14 +17,18 @@ import numpy as np
 
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import refuse_unported
 from hinge_tpu_torch.ops import classify as CL
 from hinge_tpu_torch.ops.pairs import process_alignments, top_k_per_pair
+from hinge_tpu_torch.parallel.sharding import sharded_top_k_per_pair, stage_mesh
 
 
-def _top_k(sub: OverlapStore, k: int) -> np.ndarray:
-    """Per-(A,B) top-k; the sharded variant is not ported yet."""
-    refuse_unported("HINGE_SHARDED")
+def _top_k(sub: OverlapStore, k: int, device) -> np.ndarray:
+    """Per-(A,B) top-k; HINGE_SHARDED=1 partitions at --mlas (A-id)
+    boundaries over the mesh of `device` — identical emission order, so
+    stage files byte-match."""
+    mesh = stage_mesh(device)
+    if mesh is not None:
+        return sharded_top_k_per_pair(sub, k, mesh.size)
     return top_k_per_pair(sub, k=k)
 
 
@@ -99,7 +103,7 @@ def run_maximal(
         sub = part.take(np.nonzero(nonself)[0])
 
         k = 2 if cfg.layout.use_two_matches else 1
-        cand = _top_k(sub, k)
+        cand = _top_k(sub, k, device)
         pa = process_alignments(
             sub, cand, eff_start, eff_end,
             f.aln_threshold, f.theta, f.theta2, trim=has_db, device=device,

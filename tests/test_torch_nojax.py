@@ -1,7 +1,7 @@
 """hinge_tpu_torch stands alone: it imports neither jax nor hinge_tpu
 (it keeps its own copies of the jax-free modules it shares with
-hinge_tpu), and the opt-in switches whose device code is not ported
-raise."""
+hinge_tpu), and every opt-in switch of hinge_tpu runs under the port:
+HINGE_SHARDED=1 writes the single-device run's files."""
 
 import os
 import pathlib
@@ -35,8 +35,8 @@ def test_no_hinge_tpu_import_statements():
 
 #: every subpackage of the port, so that a missing __init__.py (which
 #: walk_packages would silently skip) fails the import walk below
-SUBPACKAGES = ("data", "graph", "io", "native", "ops", "overlap", "stages",
-               "utils")
+SUBPACKAGES = ("data", "graph", "io", "native", "ops", "overlap",
+               "parallel", "stages", "utils")
 
 
 def test_filter_stage_runs_without_loading_jax(tmp_path):
@@ -117,7 +117,8 @@ print("NOJAX_OK")
 def test_golden_build_and_assemble_without_hinge_tpu(tmp_path):
     """A fresh interpreter imports every module of the port, runs the
     port's golden build and a small assemble() from the port's own
-    simulator on the CPU, and never loads hinge_tpu or jax."""
+    simulator on the CPU, then the same assemble() with HINGE_SHARDED=1
+    over 4 CPU shards (equal files), and never loads hinge_tpu or jax."""
     code = f"""
 import importlib, pkgutil, sys
 import hinge_tpu_torch
@@ -139,6 +140,14 @@ write_las(las, ov)
 res = assemble(fasta=fasta, las=las, workdir={str(tmp_path / 'w')!r},
                log=lambda *a: None, device="cpu")
 assert res["contigs"]
+import os
+os.environ["HINGE_SHARDED"] = "1"
+os.environ["HINGE_MESH_SHARDS"] = "4"
+res = assemble(fasta=fasta, las=las, workdir={str(tmp_path / 'w4')!r},
+               log=lambda *a: None, device="cpu")
+for name in ("asm.mas", "asm.max", "asm.edges.hinges", "asm.consensus.fasta"):
+    assert open({str(tmp_path / 'w4')!r} + "/" + name, "rb").read() == \\
+        open({str(tmp_path / 'w')!r} + "/" + name, "rb").read(), name
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("hinge_tpu", "jax"))
 assert loaded == [], loaded
@@ -151,14 +160,24 @@ print("STANDALONE_OK")
     assert "STANDALONE_OK" in r.stdout
 
 
-@pytest.mark.parametrize("switch, las", [
-    ("HINGE_SHARDED", True),       # filter's sharded profiles
-])
-def test_unported_switches_raise(switch, las, tmp_path, monkeypatch):
-    """Each opt-in switch that would reach hinge_tpu's jax code raises
-    NotImplementedError under the port instead of being ignored.
-    HINGE_DEVICE_JOIN and HINGE_DEVICE_VOTE are ported: tests/
-    test_torch_slice.py runs them against hinge_tpu."""
+#: the stage files of filter, maximal and layout, and the assembly's
+#: consensus and GFA
+SHARDED_FILES = ("asm.mas", "asm.cmas", "asm.repeat.txt", "asm.hinges.txt",
+                 "asm.cov.flag", "asm.self.flag", "asm.coverage.txt",
+                 "asm.max", "asm.contained.txt", "asm.edges.hinges",
+                 "asm.edges.hinges2", "asm.hinge.list",
+                 "asm.consensus.fasta", "asm_consensus.gfa")
+
+
+@pytest.mark.parametrize("shards", ["1", "4"])
+def test_unported_switches_raise(shards, tmp_path, monkeypatch):
+    """No opt-in switch of hinge_tpu raises under the port any more.
+    HINGE_SHARDED=1 with one CPU shard (the stage mesh is None, as on one
+    card) runs the single-device path; with HINGE_MESH_SHARDS=4 the
+    filter, maximal and layout stages run over 4 CPU shards.  Both write
+    the single-device run's files byte for byte.  HINGE_DEVICE_JOIN and
+    HINGE_DEVICE_VOTE: tests/test_torch_slice.py runs them against
+    hinge_tpu."""
     from hinge_tpu_torch.data.simulator import SimParams, simulate
     from hinge_tpu_torch.io.fasta import write_fasta
     from hinge_tpu_torch.io.las import write_las
@@ -170,11 +189,17 @@ def test_unported_switches_raise(switch, las, tmp_path, monkeypatch):
                                       seed=21))
     fasta = str(tmp_path / "r.fasta")
     write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
-    las_path = ""
-    if las:
-        las_path = str(tmp_path / "r.las")
-        write_las(las_path, ov)
-    monkeypatch.setenv(switch, "1")
-    with pytest.raises(NotImplementedError, match=switch):
-        assemble(fasta=fasta, las=las_path, workdir=str(tmp_path / "w"),
-                 log=lambda *a: None, device="cpu")
+    las_path = str(tmp_path / "r.las")
+    write_las(las_path, ov)
+    monkeypatch.delenv("HINGE_SHARDED", raising=False)
+    monkeypatch.delenv("HINGE_MESH_SHARDS", raising=False)
+    assemble(fasta=fasta, las=las_path, workdir=str(tmp_path / "single"),
+             log=lambda *a: None, device="cpu")
+    monkeypatch.setenv("HINGE_SHARDED", "1")
+    monkeypatch.setenv("HINGE_MESH_SHARDS", shards)
+    res = assemble(fasta=fasta, las=las_path, workdir=str(tmp_path / "w"),
+                   log=lambda *a: None, device="cpu")
+    assert res["contigs"]
+    for name in SHARDED_FILES:
+        assert (tmp_path / "w" / name).read_bytes() == \
+            (tmp_path / "single" / name).read_bytes(), name
