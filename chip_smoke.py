@@ -2,6 +2,10 @@
 
     python3 chip_smoke.py [--parent DIR] [--k3-sweep]
 
+--parent DIR holds the previous kernels' sources (band_fill.cu and
+row_traceback.cu of commit PARENT, wave_align.cu of commit PREV_K3) where
+the checkout has no git history.
+
 Runs hinge_tpu_torch on one CUDA card, phase by phase; any failure raises
 and the exit code is nonzero:
 
@@ -67,12 +71,16 @@ and the exit code is nonzero:
              aligner, whose rows must equal the C DW_banded rows
              (myers.align_exact_batch) byte for byte, through
              run_sharded_wave_align over 4 shards of the card (one K3
-             launch a shard), then K3 bit-equal to its twin on shard 0's
-             block and on a 256-window block of the same CUDA tensors;
-             prints K3's time per launch, the twin's on the same block, the
-             bound, the share, the launches and peak device memory (with
-             `--k3-sweep`, also K3's time at several launch sizes, which
-             chose wavefront.WAVE_BATCH); (d) the
+             launch a shard), then K3 and the previous K3 (commit PREV_K3,
+             one warp a window, from git history or `--parent DIR`'s
+             wave_align.cu; left out when neither has it) bit-equal to the
+             twin on shard 0's block and on a 256-window block of the same
+             CUDA tensors (the two sit on either side of K3's group-width
+             choice); prints both kernels' times, taken in turns, the
+             twin's on the same block, the bound, the share, the launches
+             and peak device memory (with `--k3-sweep`, also K3 at each
+             group width and the previous K3 at launch sizes from 256 to
+             32,768, which chose wavefront.K3_WIDTHS and WAVE_BATCH); (d) the
              sharded filter step across processes on NCCL, one rank per
              card with 2 logical shards each, whose masks must equal the
              single-device masks.
@@ -223,6 +231,9 @@ def _windows(seed=0, count=N_WINDOWS):
 
 
 def _cuda_ms(fn, reps):
+    """Time per call of `fn`: CUDA events around `reps` back-to-back calls
+    after a warm-up (a kernel shorter than its host call reads the host's
+    time between launches).  Every kernel time of this script is taken so."""
     fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -371,6 +382,73 @@ class ParentKernels:
         if err:
             raise RuntimeError(f"previous row_traceback launch failed: {err}")
         return out
+
+
+#: the commit whose K3 (csrc/wave_align.cu, one warp a window) phase 9c
+#: times beside the current one
+PREV_K3 = "b79cf98dfa161b24c9bc8bf717b4b4d82c4e48d3"
+
+
+def _prev_k3_source(tmp):
+    """The previous K3 source: wave_align.cu in --parent DIR, else from git
+    history at PREV_K3; None when neither has it."""
+    if "--parent" in sys.argv:
+        path = os.path.join(sys.argv[sys.argv.index("--parent") + 1], "wave_align.cu")
+        if os.path.exists(path):
+            return path
+    r = subprocess.run(["git", "show", f"{PREV_K3}:hinge_tpu_torch/csrc/wave_align.cu"],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        return None
+    path = os.path.join(tmp, "wave_align.cu")
+    with open(path, "w") as fh:
+        fh.write(r.stdout)
+    return path
+
+
+class PrevK3:
+    """The previous K3 and its wrapper's logic (a warp a window, a full V
+    row in shared memory, a band-wide history), built into a scratch
+    directory for the A/B in the same process.  Not part of the port."""
+
+    WARPS, SMEM_MAX = 4, 232448
+
+    def __init__(self, tmp):
+        import ctypes
+
+        from hinge_tpu_torch.ops import _build
+
+        src = _prev_k3_source(tmp)
+        self.ok = src is not None
+        if not self.ok:
+            log("[wave] previous K3 not timed: no source in --parent DIR or git history")
+            return
+        lib = _build.compile_sources([src], os.path.join(tmp, "prev_k3_build"))
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        self.fn = ctypes.CDLL(lib["wave_align"]).hinge_wave_align
+        self.fn.argtypes = [vp, vp, ll, vp, vp, i, i, i, i, *[vp] * 10]
+        self.fn.restype = i
+
+    def __call__(self, q, t, m, n, bt, max_d, kb):
+        B, L = q.shape
+        a16 = lambda v: -(-v // 16) * 16  # noqa: E731
+        if kb > 256 or self.WARPS * (a16((2 * max_d + 2) * 4) + 2 * a16(L)) > self.SMEM_MAX:
+            raise ValueError("outside the previous K3's limits")
+        dev = q.device
+        px = torch.empty((B, 2 * max_d + 2), dtype=torch.int32, device=dev)
+        py = torch.empty_like(px)
+        aligned = torch.empty((B,), dtype=torch.bool, device=dev)
+        fins = torch.empty((3, B), dtype=torch.int32, device=dev)
+        Vh = torch.empty((B, max_d, kb), dtype=torch.int16, device=dev)
+        kh = torch.empty((2, B, max_d), dtype=torch.int16, device=dev)
+        err = self.fn(q.data_ptr(), t.data_ptr(), L, m.data_ptr(), n.data_ptr(),
+                      B, bt, max_d, kb, Vh.data_ptr(), kh[0].data_ptr(),
+                      kh[1].data_ptr(), px.data_ptr(), py.data_ptr(),
+                      aligned.data_ptr(), fins[0].data_ptr(), fins[1].data_ptr(),
+                      fins[2].data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous wave_align launch failed: {err}")
+        return px, py, aligned, fins[0], fins[1], fins[2]
 
 
 def _pack(qs, ts, dev):
@@ -1238,10 +1316,27 @@ def _wave_shard_block(qs, ts, shards):
     return [to_device(a[:per], "cuda") for a in (q, t, m, n)], max_d, kb
 
 
-def _k3_twin_check(args, max_d, kb):
-    """K3 against its twin on the same CUDA tensors: the terminal state,
-    and px/py up to 2*d_fin+2.  Returns (max_abs_err, twin outputs, stats
-    of the twin's path)."""
+def _k3_equal(who, got, want):
+    """The terminal state and px/py up to 2*d_fin+2 of a K3 launch against
+    the twin's outputs; returns the max abs error (0) or raises."""
+    err = 0
+    for name, g, w in zip(("aligned", "d_fin", "k_fin", "x_fin"), got[2:], want[2:]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{who} {name} differs from its twin")
+        err = max(err, _max_abs_err([g], [w]))
+    valid = (torch.arange(want[0].shape[1], device=want[0].device)[None, :]
+             < 2 * (want[3][:, None] + 1))
+    for name, g, w in zip(("px", "py"), got[:2], want[:2]):
+        if not torch.equal(torch.where(valid, g, 0), torch.where(valid, w, 0)):
+            raise AssertionError(f"{who} {name} differs from its twin")
+        err = max(err, _max_abs_err([g[valid]], [w[valid]]))
+    return err
+
+
+def _k3_twin_check(args, max_d, kb, prev=None):
+    """K3 (and the previous K3, when built) against the twin on the same
+    CUDA tensors.  Returns (max_abs_err, twin outputs, stats of the twin's
+    path)."""
     from hinge_tpu_torch.ops import wavefront as W
 
     got = W.launch_wave_align(*args, 150, max_d=max_d, kb=kb)
@@ -1250,28 +1345,30 @@ def _k3_twin_check(args, max_d, kb):
     px, py = W.wave_backtrack_ref(*fwd, max_d=max_d)
     want = (px, py, *fwd[3:])
     torch.cuda.synchronize()
-    err = 0
-    for name, g, w in zip(("aligned", "d_fin", "k_fin", "x_fin"), got[2:], want[2:]):
-        if not torch.equal(g, w):
-            raise AssertionError(f"K3 {name} differs from its twin")
-        err = max(err, _max_abs_err([g], [w]))
-    valid = (torch.arange(px.shape[1], device=px.device)[None, :]
-             < 2 * (want[3][:, None] + 1))
-    for name, g, w in zip(("px", "py"), got[:2], want[:2]):
-        if not torch.equal(torch.where(valid, g, 0), torch.where(valid, w, 0)):
-            raise AssertionError(f"K3 {name} differs from its twin")
-        err = max(err, _max_abs_err([g[valid]], [w[valid]]))
+    err = _k3_equal("K3", got, want)
+    del got
+    if prev is not None and prev.ok:
+        _k3_equal("previous K3", prev(*args, 150, max_d, kb), want)
     return err, want, stats
 
 
-def _k3_timed(args, max_d, kb):
-    """K3 held bit-equal to its twin on one block of CUDA tensors, then
-    timed beside it: (max_abs_err, K3 ms, twin ms, bound ms, bound_by,
-    the twin's path stats)."""
+def _k3_timed(args, max_d, kb, prev=None):
+    """K3 (and the previous K3, when built) held bit-equal to the twin on
+    one block of CUDA tensors, then timed in turns (K3, previous, previous,
+    K3) and beside the twin: (max_abs_err, K3 ms, previous K3 ms or None,
+    twin ms, bound ms, bound_by, the twin's path stats)."""
     from hinge_tpu_torch.ops import wavefront as W
 
-    err, want, stats = _k3_twin_check(args, max_d, kb)
-    ms = _cuda_ms(lambda: W.launch_wave_align(*args, 150, max_d=max_d, kb=kb), 10)
+    err, want, stats = _k3_twin_check(args, max_d, kb, prev)
+    new = lambda: W.launch_wave_align(*args, 150, max_d=max_d, kb=kb)  # noqa: E731
+    if prev is not None and prev.ok:
+        old = lambda: prev(*args, 150, max_d, kb)  # noqa: E731
+        turns = [_cuda_ms(f, 10) for f in (new, old, old, new)]
+        ms, prev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        log(f"[wave] in turns (K3, previous, previous, K3): "
+            + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+    else:
+        ms, prev_ms = _cuda_ms(new, 10), None
 
     def twin():
         W.wave_backtrack_ref(*W.wave_forward_ref(*args, 150, max_d=max_d, kb=kb),
@@ -1279,15 +1376,16 @@ def _k3_timed(args, max_d, kb):
 
     plain_ms = _cuda_ms(twin, 1)
     b_ms, b_by = wave_bound(stats, want[3], args[2], args[3])
-    return err, ms, plain_ms, b_ms, b_by, stats
+    return err, ms, prev_ms, plain_ms, b_ms, b_by, stats
 
 
-def phase_wave_kernel(qs, ts):
+def phase_wave_kernel(qs, ts, prev):
     """Phase 9c: every ladder window of phase 5's draft through the sharded
     window aligner (run_sharded_wave_align over MESH_SHARDS shards of the
     card, one K3 launch a shard), rows equal to the C DW_banded rows; K3
-    bit-equal to its twin on shard 0's block and on a 256-window block, and
-    timed beside it on both, with the bound, the share and the launches."""
+    and the previous K3 bit-equal to the twin on shard 0's block and on a
+    256-window block, and timed in turns and beside the twin on both, with
+    the bound, the share and the launches."""
     from hinge_tpu_torch.ops import myers as MY
     from hinge_tpu_torch.ops import wavefront as W
     from hinge_tpu_torch.parallel.sharding import make_mesh, run_sharded_wave_align
@@ -1322,47 +1420,80 @@ def phase_wave_kernel(qs, ts):
     # the main path's launch: shard 0's block
     args, max_d, kb = _wave_shard_block(qs, ts, MESH_SHARDS)
     B, L = args[0].shape
-    err, ms, plain_ms, b_ms, b_by, stats = _k3_timed(args, max_d, kb)
-    log(f"[wave] K3 on shard 0's block ({B} windows, max_d {max_d}, L {L}): "
-        f"bit-equal to its twin; {ms:.4f} ms per launch, twin {plain_ms:.4f} "
-        f"ms ({plain_ms / ms:.1f}x); bound {b_ms:.4f} ms by {b_by}, share "
-        f"{b_ms / ms:.4f}; twin path {stats}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lanes = W.k3_lanes(B, sms)
+    err, ms, prev_ms, plain_ms, b_ms, b_by, stats = _k3_timed(args, max_d, kb, prev)
+    log(f"[wave] K3 on shard 0's block ({B} windows, max_d {max_d}, L {L}, "
+        f"{lanes} lanes a window): "
+        f"bit-equal to its twin; {ms:.4f} ms per launch, previous K3 "
+        f"{_ms_or_none(prev_ms)}, twin {plain_ms:.4f} ms ({plain_ms / ms:.1f}x); "
+        f"bound {b_ms:.4f} ms by {b_by}, share {b_ms / ms:.4f} (previous "
+        f"{_share_or_none(b_ms, prev_ms)}); twin path {stats}")
     del args
 
     # the twin beside K3 on the 256 longest windows
     lens = np.array([len(q) + len(t) for q, t in zip(qs, ts)])
     order = np.argsort(lens, kind="stable")
     args, max_d, kb = _wave_block(qs, ts, order[-TWIN_BLOCK:])
-    e2, t_ms, t_plain, b2_ms, b2_by, _ = _k3_timed(args, max_d, kb)
+    e2, t_ms, t_prev, t_plain, b2_ms, b2_by, _ = _k3_timed(args, max_d, kb, prev)
     err = max(err, e2)
-    log(f"[wave] {TWIN_BLOCK}-window block: K3 bit-equal to its twin; K3 "
-        f"{t_ms:.4f} ms, twin {t_plain:.4f} ms ({t_plain / t_ms:.1f}x); "
-        f"bound {b2_ms:.4f} ms by {b2_by}, share {b2_ms / t_ms:.4f}")
+    t_lanes = W.k3_lanes(TWIN_BLOCK, sms)
+    log(f"[wave] {TWIN_BLOCK}-window block ({t_lanes} lanes a window): K3 "
+        f"bit-equal to its twin; K3 "
+        f"{t_ms:.4f} ms, previous K3 {_ms_or_none(t_prev)}, twin "
+        f"{t_plain:.4f} ms ({t_plain / t_ms:.1f}x); bound {b2_ms:.4f} ms by "
+        f"{b2_by}, share {b2_ms / t_ms:.4f}")
     del args
     if "--k3-sweep" in sys.argv:
-        wave_launch_sizes(qs, ts)
+        wave_sweep(qs, ts, prev)
     return {"launches": launches["wave_align"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share": b_ms / ms, "windows_per_launch": B,
-            "twin_block": {"windows": TWIN_BLOCK, "ms": t_ms, "plain_ms": t_plain,
-                           "bound_ms": b2_ms, "bound_by": b2_by,
-                           "share": b2_ms / t_ms}}
+            "prev_ms": prev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share": b_ms / ms, "windows_per_launch": B,
+            "lanes": lanes, "peak_bytes": peak,
+            "twin_block": {"windows": TWIN_BLOCK, "lanes": t_lanes,
+                           "ms": t_ms, "prev_ms": t_prev,
+                           "plain_ms": t_plain, "bound_ms": b2_ms,
+                           "bound_by": b2_by, "share": b2_ms / t_ms}}
 
 
-def wave_launch_sizes(qs, ts):
-    """K3's time per 1024 windows at several launch sizes, on one seeded
-    sample of the ladder windows: what wavefront.WAVE_BATCH was chosen by
+def _ms_or_none(ms):
+    return "not timed" if ms is None else f"{ms:.4f} ms"
+
+
+def _share_or_none(b_ms, ms):
+    return "not timed" if ms is None else f"{b_ms / ms:.4f}"
+
+
+def wave_sweep(qs, ts, prev):
+    """K3 at every group width it is built for, and the previous K3, on
+    seeded samples of the ladder windows from 256 to 32,768 a launch, each
+    launch's outputs equal to those of the width `k3_lanes` picks: what
+    wavefront.K3_WIDTHS's crossovers and WAVE_BATCH were chosen by
     (`--k3-sweep` only)."""
     from hinge_tpu_torch.ops import wavefront as W
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(3)
-    for count in (1024, 4096, 16384, 32768):
+    for count in (256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 11129, 16384, 32768):
         sel = rng.permutation(len(qs))[: min(count, len(qs))]
         args, max_d, kb = _wave_block(qs, ts, sel)
-        ms = _cuda_ms(lambda: W.launch_wave_align(*args, 150, max_d=max_d, kb=kb), 3)
-        log(f"[wave] {len(sel)} windows per launch (max_d {max_d}): K3 "
-            f"{ms:.4f} ms ({ms * 1024 / len(sel):.4f} per 1024 windows)")
-        del args
+        B = len(sel)
+        pick = W.k3_lanes(B, sms)
+        want = W.launch_wave_align(*args, 150, max_d=max_d, kb=kb)
+        times = {}
+        for lanes, _ in W.K3_WIDTHS:
+            run = lambda: W.launch_k3_at(*args, 150, max_d=max_d, kb=kb, lanes=lanes)  # noqa: E731
+            _k3_equal(f"K3 at {lanes} lanes", run(), want)
+            times[lanes] = _cuda_ms(run, 10)
+        prev_ms = None
+        if prev is not None and prev.ok:
+            _k3_equal("previous K3", prev(*args, 150, max_d, kb), want)
+            prev_ms = _cuda_ms(lambda: prev(*args, 150, max_d, kb), 10)
+        log(f"[wave] sweep {B} windows a launch ({B / sms:.1f} an SM, max_d "
+            f"{max_d}): K3 at " + ", ".join(f"{g} lanes {ms:.4f}" for g, ms in times.items())
+            + f" ms; picks {pick} lanes ({times[pick] * 1024 / B:.4f} ms per 1024 "
+            f"windows); previous K3 {_ms_or_none(prev_ms)}")
+        del args, want
 
 
 def phase_nccl():
@@ -1393,7 +1524,7 @@ def phase_nccl():
     return wall
 
 
-def phase_sharded(tmp, fasta, las, p5_stages, windows):
+def phase_sharded(tmp, fasta, las, p5_stages, windows, prev):
     """Phase 9: the mesh path on the card (9a-9d)."""
     t0 = time.perf_counter()
     walls = {"families": phase_sharded_families()}
@@ -1401,7 +1532,7 @@ def phase_sharded(tmp, fasta, las, p5_stages, windows):
     phase_sharded_stages(tmp, fasta, las, p5_stages)
     walls["stages"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    k3 = phase_wave_kernel(*windows)
+    k3 = phase_wave_kernel(*windows, prev)
     walls["wave"] = time.perf_counter() - t1
     walls["nccl"] = phase_nccl()
     log(f"[sharded] phase 9 wall {time.perf_counter() - t0:.3f}s: " + ", ".join(
@@ -1414,6 +1545,7 @@ def main():
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         parent = ParentKernels(tmp)
+        prev_k3 = PrevK3(tmp)
         errs, p3 = phase_kernels(parent)
         phase_golden()
         (launches, per_launch, block, rs, ov, fasta, p5_stages,
@@ -1427,7 +1559,7 @@ def main():
         ops += vote_ops
         las = os.path.join(tmp, "reads.las")
         surface_launches = phase_hinge_surface(tmp, rs, las)
-        k3 = phase_sharded(tmp, fasta, las, p5_stages, windows)
+        k3 = phase_sharded(tmp, fasta, las, p5_stages, windows, prev_k3)
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

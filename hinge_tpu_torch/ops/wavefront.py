@@ -11,7 +11,11 @@ window advances in parallel.  One kernel, K3, with a plain torch twin:
   `wave_backtrack_ref`): the forward wave with its band-relative int16
   history, then the backtrack to the path points.  A wrapper takes the
   twin only for CPU tensors; for CUDA tensors it launches the kernel or
-  raises.
+  raises.  K3 is bound by each window's chain of ~60 dependent steps,
+  not by bytes: it gives a window a group of lanes (several windows a
+  warp, stepped together; wider groups when the launch has few windows
+  an SM, `k3_lanes`), works and keeps history only on the live band,
+  and keeps the history's tail in shared memory (`k3_plan`).
 
 Exactness (the twin repeats hinge_tpu's XLA program step for step):
 identical tie-breaking (`k == min_k || (k != max_k && V[k-1] < V[k+1])`,
@@ -38,10 +42,13 @@ _PAD_T = 5
 SNAKE_CHUNK = 16
 I32 = torch.int32
 #: windows per K3 launch in the single-device align_exact_batch_device on
-#: CUDA (run_sharded_wave_align launches one block a shard instead), chosen
-#: from `chip_smoke.py --k3-sweep` on an H100 (per 1024 ladder windows:
-#: 0.129 ms at 1024 a launch, 0.050 at 4096, 0.039 at 16384); the twin
-#: keeps hinge_tpu's 256
+#: CUDA (run_sharded_wave_align launches one block a shard instead), from
+#: `chip_smoke.py --k3-sweep` on an H100 (per 1024 ladder windows: 0.098
+#: ms at 1024 a launch, 0.034 at 4096, 0.0185 at 16384, 0.0159 at 32768).
+#: K3's scratch is capped by the blocks resident on the card, so a larger
+#: launch grows only px/py, two int32 rows of 2*max_d+2 a window (8.8 KB
+#: at max_d 549): 32768 a launch would hold 288 MB of them to save
+#: ~0.003 ms per 1024 windows.  The twin keeps hinge_tpu's 256
 WAVE_BATCH = 16384
 TWIN_BATCH = 256
 
@@ -256,22 +263,96 @@ def wave_align(q, t, m, n, band_tolerance: int, *, max_d: int, kb: int):
     return launch_wave_align(q, t, m, n, band_tolerance, max_d=max_d, kb=kb)
 
 
-#: K3's limits (csrc/wave_align.cu): band lanes, warps per block, and the
-#: shared memory a block may take on sm_90
+#: K3's limits (csrc/wave_align.cu): band slots, and the bound on L and
+#: max_d that the one-warp-a-window K3 of commit b79cf98 set (4 * (its V
+#: row + q + t) <= SMEM_MAX); every input inside it is taken, and it keeps
+#: L < 32768, so K3's int16 V is exact
 KB_MAX = 256
-K3_WARPS = 4
 SMEM_MAX = 232448
+#: the most threads a block has (a block holds K3_THREADS // lanes
+#: windows when they fit)
+K3_THREADS = 128
+#: the group widths (lanes a window) K3 is built for, widest first, each
+#: with the most windows an SM a launch may have to take it (the last
+#: takes any): a wide group shortens each window's chain of steps while
+#: the card has few windows, a narrow one spends no issue on idle lanes
+#: once the card is full.  Crossovers from `chip_smoke.py --k3-sweep` on
+#: an H100's 132 SMs: 32 lanes fastest up to 15.5 windows an SM, 16 from
+#: 23.3 to 46.5, 8 from 62.1 on
+K3_WIDTHS = ((32, 20.0), (16, 54.0), (8, float("inf")))
+#: the most history entries a window keeps in its shared-memory ring
+K3_RING = 64
 
 
-def _warp_smem(max_d: int, L: int) -> int:
-    """Shared bytes of one K3 warp: its V row and its window's q and t."""
-    a16 = lambda v: -(-v // 16) * 16  # noqa: E731
-    return a16((2 * max_d + 2) * 4) + 2 * a16(L)
+def _a16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def check_k3_limits(L: int, max_d: int, kb: int) -> None:
+    """Raise ValueError for a block K3 does not take."""
+    if kb > KB_MAX or 4 * (_a16((2 * max_d + 2) * 4) + 2 * _a16(L)) > SMEM_MAX:
+        raise ValueError(f"K3 takes kb <= {KB_MAX} and 4 * (a V row of "
+                         f"2*max_d+2 int32 + q + t of L bytes) <= {SMEM_MAX} "
+                         f"bytes: kb {kb}, max_d {max_d}, L {L}")
+
+
+def k3_lanes(B: int, sms: int) -> int:
+    """The group width of a K3 launch of B windows on a card of `sms` SMs:
+    the widest of K3_WIDTHS whose windows-an-SM limit B keeps under."""
+    return next(g for g, most in K3_WIDTHS if B <= most * sms)
+
+
+def k3_plan(L: int, max_d: int, kb: int, band_tolerance: int,
+            lanes: int) -> dict:
+    """K3's launch shape for one block of windows at `lanes` lanes a window.
+
+    ring: history entries a window keeps in shared memory, K3_RING or two
+    rows of the widest live band (min(kb, band_tolerance + 1) slots, plus
+    min_k and max_k each) if fewer; window_smem: q, t and the ring;
+    windows_per_block; threads; hist_per_slot: the int16 history stream's
+    most entries for one window, one row a step of at most
+    min(d + 1, widest) slots plus its two band edges, rounded up to 8
+    entries."""
+    if lanes not in [g for g, _ in K3_WIDTHS]:
+        raise ValueError(f"K3 is built for {[g for g, _ in K3_WIDTHS]} lanes "
+                         f"a window, not {lanes}")
+    widest = max(1, min(kb, band_tolerance + 1))
+    ring = min(2 * widest + 4, K3_RING)
+    window = 2 * _a16(L + 4) + _a16(2 * ring)
+    wb = max(1, min(K3_THREADS // lanes, SMEM_MAX // window))
+    ramp = min(max_d, widest)
+    hist = ramp * (ramp + 1) // 2 + (max_d - ramp) * widest + 2 * max_d
+    hist = -(-hist // 8) * 8  # 16-byte aligned streams
+    return {"lanes": lanes, "ring": ring, "window_smem": window,
+            "windows_per_block": wb, "threads": -(-wb * lanes // 32) * 32,
+            "hist_per_slot": hist}
+
+
+#: blocks of a plan resident on a card at once, by (device, plan)
+_resident: dict = {}
+
+
+def k3_grid(B: int, plan: dict, resident: int) -> int:
+    """Persistent blocks of one launch: enough for the batch, no more than
+    fit on the card at once."""
+    return max(1, min(-(-B // plan["windows_per_block"]), resident))
 
 
 def launch_wave_align(q, t, m, n, band_tolerance: int, *, max_d: int, kb: int):
     """The K3 launch alone, for CUDA tensors that wave_align has checked:
-    no host synchronisation, so back-to-back calls time the kernel."""
+    no host synchronisation, so back-to-back calls time the kernel.  The
+    group width comes from the batch and the card (`k3_lanes`)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return launch_k3_at(q, t, m, n, band_tolerance, max_d=max_d, kb=kb,
+                        lanes=k3_lanes(q.shape[0], sms))
+
+
+def launch_k3_at(q, t, m, n, band_tolerance: int, *, max_d: int, kb: int,
+                 lanes: int):
+    """launch_wave_align at a given group width (its sweep and tests)."""
     from hinge_tpu_torch.ops._build import load_kernels
 
     dev = q.device
@@ -279,10 +360,8 @@ def launch_wave_align(q, t, m, n, band_tolerance: int, *, max_d: int, kb: int):
         raise ValueError(f"no kernel for device {dev}")
     B, L = q.shape
     W = 2 * max_d + 2
-    if kb > KB_MAX or K3_WARPS * _warp_smem(max_d, L) > SMEM_MAX:
-        raise ValueError(f"K3 takes kb <= {KB_MAX} and windows whose V row "
-                         f"and q/t fit {SMEM_MAX} bytes of shared memory per "
-                         f"{K3_WARPS} warps: kb {kb}, max_d {max_d}, L {L}")
+    check_k3_limits(L, max_d, kb)
+    plan = k3_plan(L, max_d, kb, band_tolerance, lanes)
     lib = load_kernels()
     px = torch.empty((B, W), dtype=I32, device=dev)
     py = torch.empty((B, W), dtype=I32, device=dev)
@@ -290,16 +369,24 @@ def launch_wave_align(q, t, m, n, band_tolerance: int, *, max_d: int, kb: int):
     fins = torch.empty((3, B), dtype=I32, device=dev)
     if B == 0:
         return px, py, aligned, fins[0], fins[1], fins[2]
-    # scratch: the band-relative history, rows past d_fin never written
-    Vh = torch.empty((B, max_d, kb), dtype=torch.int16, device=dev)
-    kh = torch.empty((2, B, max_d), dtype=torch.int16, device=dev)
+    wb, ring, hps = plan["windows_per_block"], plan["ring"], plan["hist_per_slot"]
     with torch.cuda.device(dev):
+        key = (dev.index, plan["lanes"], wb, L, ring)
+        if key not in _resident:
+            _resident[key] = lib.hinge_wave_align_resident(plan["lanes"], wb, L, ring)
+        if _resident[key] <= 0:
+            raise DeviceError(f"wave_align fits no block on {dev}: "
+                              f"cudaError {-_resident[key]}")
+        grid = k3_grid(B, plan, _resident[key])
+        # scratch: one history stream a resident window, entries past a
+        # window's end never written
+        hist = torch.empty(grid * wb * hps, dtype=torch.int16, device=dev)
         err = lib.hinge_wave_align(
             q.data_ptr(), t.data_ptr(), L, m.data_ptr(), n.data_ptr(), B,
-            band_tolerance, max_d, kb, Vh.data_ptr(), kh[0].data_ptr(),
-            kh[1].data_ptr(), px.data_ptr(), py.data_ptr(),
-            aligned.data_ptr(), fins[0].data_ptr(), fins[1].data_ptr(),
-            fins[2].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            band_tolerance, max_d, kb, plan["lanes"], wb, ring, hps, grid,
+            hist.data_ptr(), px.data_ptr(), py.data_ptr(), aligned.data_ptr(),
+            fins[0].data_ptr(), fins[1].data_ptr(), fins[2].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise DeviceError(f"wave_align kernel launch failed: cudaError {err}")
     launches["wave_align"] += 1
