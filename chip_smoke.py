@@ -83,12 +83,37 @@ and the exit code is nonzero:
              32,768, which chose wavefront.K3_WIDTHS and WAVE_BATCH); (d) the
              sharded filter step across processes on NCCL, one rank per
              card with 2 logical shards each, whose masks must equal the
-             single-device masks.
+             single-device masks;
+10. repeats — HINGE's repeat path (tests/torch_golden_repeats.py): (a) the
+             filter -> draft-path files of a 300 kb genome with a 25 kb
+             repeat longer than every read, byte-equal on cuda to
+             tests/golden_repeats/; (b) the yeast W303-scale workload (the
+             16 S288C chromosomes, 12.07 Mb, telomeric blocks, four
+             unbridged 25 kb repeats and a Ty1-like element, 30x with read
+             errors; simulated with a process a CPU core) as FASTA + .las, whose
+             sha256 must equal hinge_tpu's manifest
+             (tests/golden_repeats/yeast_w303.json), through assemble() on
+             cuda with the demo ini: every file written before the draft
+             stage must equal the manifest's, and draft -> gfa again under
+             HINGE_PARITY_ALIGN=1 too (graphml by networkx's ElementTree
+             serializer on both sides); both kernels must run and be
+             bit-equal to their twins on the draft's largest block, the
+             final graph (G3) must hold a hinged edge, matching_position must get
+             queries on cuda, and 500 bp probes every 20 kb of each
+             chromosome must be >= 0.9 found in the default-switch
+             consensus; prints the set-up, stage walls, peak device memory,
+             launches, hinged edges, contigs and probe shares; (c) filter,
+             maximal and layout on (b)'s reads with HINGE_SHARDED=1 and
+             HINGE_MESH_SHARDS=4, every file byte-equal to (b)'s, with
+             matching-position queries through the mesh, and the sharded
+             hinge call on the filter's hinge tasks equal to the
+             single-device op.
 
 Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
-launches and windows per launch of phase 5, phase 3's numbers beside
-them; K3's from phase 9) and, last, the device line {"ok": true,
+launches and windows per launch of phase 5, phase 3's numbers and
+phase 10's launches, windows per launch and numbers on its largest block
+beside them; K3's from phase 9) and, last, the device line {"ok": true,
 "device": {...}}.  Imports no jax.
 """
 
@@ -825,16 +850,25 @@ def phase_trim(rs, ov):
 
 
 class _Timed:
-    """Wraps a module function and sums its wall seconds."""
+    """Wraps a module function and sums its wall seconds; with `count`,
+    also sums count(*args, **kwargs) over the calls (queries, tasks), and
+    keeps the device types of the tensors it gets first."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, count=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.count = count
         self.seconds = 0.0
         self.calls = 0
+        self.items = 0
+        self.devices = set()
 
     def __enter__(self):
         def timed(*a, **kw):
+            if self.count is not None:
+                self.items += self.count(*a, **kw)
+            if a and isinstance(a[0], torch.Tensor):
+                self.devices.add(a[0].device.type)
             t0 = time.perf_counter()
             try:
                 return self.fn(*a, **kw)
@@ -1198,19 +1232,16 @@ def phase_sharded_families():
     return wall
 
 
-def phase_sharded_stages(tmp, fasta, las, p5_stages):
-    """Phase 9b: filter, maximal and layout with HINGE_SHARDED=1 over
-    MESH_SHARDS logical shards of the card; the 12 stage files must be
-    byte-equal to phase 5's."""
-    from hinge_tpu_torch.config import nominal_config
-    from hinge_tpu_torch.io.fasta import read_fasta
-    from hinge_tpu_torch.io.las import read_las
+def run_sharded_stages(wd, rs, parts, cfg):
+    """filter, maximal and layout into `wd` (prefix "asm") with
+    HINGE_SHARDED=1 over MESH_SHARDS logical shards of the card.  Returns
+    the stage walls, the sharded matching-position queries and the peak
+    device memory."""
     from hinge_tpu_torch.parallel.sharding import stage_mesh
     from hinge_tpu_torch.stages import filter as SF
     from hinge_tpu_torch.stages import layout as SL
     from hinge_tpu_torch.stages import maximal as SM
 
-    wd = os.path.join(tmp, "sharded")
     os.makedirs(wd)
     p = os.path.join(wd, "asm")
     os.environ["HINGE_SHARDED"] = "1"
@@ -1221,16 +1252,12 @@ def phase_sharded_stages(tmp, fasta, las, p5_stages):
                 d.type != "cuda" for _, d in mesh.local_shards()):
             raise AssertionError(f"HINGE_SHARDED=1 gave no {MESH_SHARDS}-shard "
                                  "mesh on the card")
-        t0 = time.perf_counter()
-        rs = read_fasta(fasta)
-        parts = [read_las(las, read_lengths=rs.length)]
-        read_wall = time.perf_counter() - t0
-        cfg = nominal_config()
         walls = {}
         torch.cuda.reset_peak_memory_stats()
         with _Timed(SF, "run_sharded_profiles") as prof, \
                 _Timed(SM, "sharded_top_k_per_pair") as topk, \
-                _Timed(SL, "run_sharded_matching_position") as mpos:
+                _Timed(SL, "run_sharded_matching_position",
+                       count=lambda ov_idx, *a, **kw: len(ov_idx)) as mpos:
             t0 = time.perf_counter()
             fres = SF.run_filter(rs, parts, cfg, out_prefix=p, device="cuda")
             torch.cuda.synchronize()
@@ -1253,23 +1280,47 @@ def phase_sharded_stages(tmp, fasta, las, p5_stages):
     finally:
         os.environ.pop("HINGE_SHARDED", None)
         os.environ.pop("HINGE_MESH_SHARDS", None)
-    # the layout queries matching positions only for hinged reads with
-    # matches (none on a genome without repeats); 9a runs that family
     calls = {"profiles": prof.calls, "top_k": topk.calls,
              "matching_position": mpos.calls}
     if not (prof.calls and topk.calls):
         raise AssertionError(f"the stages skipped the mesh: {calls}")
-    differ = []
-    for name in SHARDED_STAGE_FILES:
-        with open(os.path.join(tmp, "asm", name), "rb") as f, \
+    log(f"[sharded] HINGE_SHARDED=1 over {MESH_SHARDS} shards of cuda "
+        f"({mesh.shape}): mesh calls {calls}, {mpos.items} sharded "
+        f"matching-position queries")
+    return walls, mpos.items, peak
+
+
+def _differing(ref_dir, wd, names):
+    out = []
+    for name in names:
+        with open(os.path.join(ref_dir, name), "rb") as f, \
                 open(os.path.join(wd, name), "rb") as g:
             if f.read() != g.read():
-                differ.append(name)
+                out.append(name)
+    return out
+
+
+def phase_sharded_stages(tmp, fasta, las, p5_stages):
+    """Phase 9b: filter, maximal and layout with HINGE_SHARDED=1 over
+    MESH_SHARDS logical shards of the card; the 12 stage files must be
+    byte-equal to phase 5's."""
+    from hinge_tpu_torch.config import nominal_config
+    from hinge_tpu_torch.io.fasta import read_fasta
+    from hinge_tpu_torch.io.las import read_las
+
+    t0 = time.perf_counter()
+    rs = read_fasta(fasta)
+    parts = [read_las(las, read_lengths=rs.length)]
+    read_wall = time.perf_counter() - t0
+    wd = os.path.join(tmp, "sharded")
+    walls, _, peak = run_sharded_stages(wd, rs, parts, nominal_config())
+    # the layout queries matching positions only for hinged reads with
+    # matches (none on a genome without repeats); phase 10c has them
+    differ = _differing(os.path.join(tmp, "asm"), wd, SHARDED_STAGE_FILES)
     if differ:
         raise AssertionError(f"sharded stage files differ from phase 5's: {differ}")
-    log(f"[sharded] HINGE_SHARDED=1 over {MESH_SHARDS} shards of cuda "
-        f"({mesh.shape}): {len(SHARDED_STAGE_FILES)} stage files byte-equal "
-        f"to phase 5's; mesh calls {calls}")
+    log(f"[sharded] {len(SHARDED_STAGE_FILES)} stage files byte-equal to "
+        "phase 5's")
     log("[sharded] stage walls (phase 5's beside): " + ", ".join(
         f"{k} {v:.3f}s ({p5_stages.get(k, 0.0):.3f}s)" for k, v in walls.items())
         + f"; input read {read_wall:.3f}s; peak device memory {peak} bytes")
@@ -1540,6 +1591,271 @@ def phase_sharded(tmp, fasta, las, p5_stages, windows, prev):
     return k3
 
 
+def phase_golden_repeats():
+    """Phase 10a: case (a)'s filter -> draft-path files (a 25 kb repeat
+    longer than every read) on cuda, byte-equal to tests/golden_repeats/."""
+    from hinge_tpu_torch.ops import classify as CL
+    from tests import torch_golden_repeats as GR
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            _Timed(CL, "matching_position",
+                   count=lambda ov_idx, *a, **kw: ov_idx.numel()) as mpos:
+        t0 = time.perf_counter()
+        GR.build(tmp, device="cuda")
+        bad = GR.mismatches(tmp)
+    if bad:
+        raise AssertionError(f"golden repeat files differ on cuda: {bad}")
+    log(f"[repeats] {len(GR.GOLDEN_FILES)}/{len(GR.GOLDEN_FILES)} golden "
+        f"repeat files byte-equal on cuda ({time.perf_counter() - t0:.3f}s); "
+        f"{mpos.items} matching-position queries")
+
+
+class _HingeTasks:
+    """Keeps the inputs of the filter's largest hinge-calling launch
+    (ops/hinge_call._hinge_kernel) as host arrays, for phase 10c."""
+
+    def __init__(self, module):
+        self.module, self.fn = module, module._hinge_kernel
+        self.args = None
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            if self.args is None or a[0].numel() > len(self.args[0][0]):
+                self.args = ([x.cpu().numpy() for x in a[:10]],
+                             {k: kw[k] for k in ("theta", "htl", "hbl", "hrut", "hbpt")})
+            return self.fn(*a, **kw)
+
+        self.module._hinge_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module._hinge_kernel = self.fn
+
+
+def rerun_tail(wd, fasta, las, cfg):
+    """draft -> correct-head -> map -> consensus -> gfa again on the
+    workdir of assemble() (prefix "asm"), as assemble() runs them, from
+    its .max and .edges.list.  Returns the reads and overlaps it read."""
+    from hinge_tpu_torch.cli import _read_max
+    from hinge_tpu_torch.data.overlaps import str_to_codes
+    from hinge_tpu_torch.io.fasta import correct_head, read_fasta
+    from hinge_tpu_torch.io.las import read_las
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
+    from hinge_tpu_torch.stages.consensus import run_consensus
+    from hinge_tpu_torch.stages.draft import run_draft
+    from hinge_tpu_torch.stages.gfa import run_gfa
+    from hinge_tpu_torch.utils.log import stage_timer
+
+    p = os.path.join(wd, "asm")
+    rs = read_fasta(fasta)
+    parts = [read_las(las, read_lengths=rs.length)]
+    with stage_timer("draft"):
+        contigs = run_draft(rs, parts, cfg, _read_max(p + ".max", rs.n_reads),
+                            p + ".edges.list", out_fasta=p + ".draft.fasta",
+                            device="cuda")
+    correct_head(p + ".draft.fasta", p + ".draft.pb.fasta",
+                 os.path.join(wd, "draft_map.txt"))
+    with stage_timer("map"):
+        aln = map_reads_to_targets([str_to_codes(s) for _, s in contigs], rs)
+    with stage_timer("consensus"):
+        run_consensus(contigs, rs, aln, cfg, out_fasta=p + ".consensus.fasta",
+                      device="cuda")
+    with stage_timer("gfa"):
+        run_gfa(p + "_draft.graphml", os.path.join(wd, "draft_map.txt"),
+                p + ".consensus.fasta", out_gfa=p + "_consensus.gfa")
+    return rs, parts
+
+
+def _stage_line(stages):
+    return ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
+
+
+def phase_yeast(tmp, parent):
+    """Phase 10b: the yeast W303-scale workload (tests/torch_golden_repeats.py)
+    through assemble() on cuda with the demo ini, held to hinge_tpu's
+    manifest: the inputs' sha256, every file written before the draft
+    stage under the default switches, then draft -> gfa again under
+    HINGE_PARITY_ALIGN=1 (the C DW_banded path, as the manifest was made).
+    The largest band-NW block of its draft is held to the twins
+    (check_block)."""
+    from hinge_tpu_torch.config import Config
+    from hinge_tpu_torch.data.simulator import SimParams, simulate
+    from hinge_tpu_torch.io.fasta import write_fasta
+    from hinge_tpu_torch.io.las import write_las
+    from hinge_tpu_torch.ops import band_nw as BN
+    from hinge_tpu_torch.ops import classify as CL
+    from hinge_tpu_torch.ops import hinge_call as HC
+    from hinge_tpu_torch.pipeline import assemble
+    from hinge_tpu_torch.utils.log import timings
+    from tests import torch_golden_repeats as GR
+
+    with open(GR.MANIFEST) as f:
+        man = json.load(f)
+    p = GR.yeast_params(SimParams)
+    if GR.params_record(p) != man["params"]:
+        raise AssertionError("the inputs differ from the manifest's: the "
+                             "workload's parameters are not the manifest's")
+    base = os.path.join(tmp, "yeast")
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    genome, _, rs, ov = simulate(p)
+    sim_wall = time.perf_counter() - t0
+    fasta, las = os.path.join(base, "reads.fasta"), os.path.join(base, "reads.las")
+    write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+    write_las(las, ov)
+    n_reads, n_records = rs.n_reads, ov.n
+    del rs, ov
+    bad = GR.manifest_mismatches(base, man["inputs"], man["inputs"])
+    if bad:
+        raise AssertionError(f"the inputs differ from the manifest's ({bad}): "
+                             "the simulator or the writers, not the port's stages")
+    log(f"[yeast] host set-up: simulated {n_reads} reads, {n_records} records "
+        f"of a {len(genome)} bp genome in {sim_wall:.3f}s "
+        f"({os.cpu_count()} processes), wrote them in "
+        f"{time.perf_counter() - t0 - sim_wall:.3f}s; FASTA and .las sha256 "
+        "equal to the manifest's")
+    ini = os.path.join(base, "yeast.ini")
+    with open(ini, "w") as f:
+        f.write(GR.YEAST_DEMO_INI)
+
+    wd = os.path.join(base, "asm")
+    _zero(BN.launches)
+    before = timings()
+    torch.cuda.reset_peak_memory_stats()
+    with _BlockSpy(BN) as spy, _HingeTasks(HC) as tasks, \
+            _Timed(CL, "matching_position",
+                   count=lambda ov_idx, *a, **kw: ov_idx.numel()) as mpos:
+        t0 = time.perf_counter()
+        with GR.etree_graphml():
+            res = assemble(fasta=fasta, las=las, config=ini, workdir=wd,
+                           device="cuda", log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(BN.launches)
+    peak = torch.cuda.max_memory_allocated()
+    stages = _stage_diff(before)
+    G = res["graphs"].get("G3", res["graphs"]["G2"])
+    hinged = GR.hinged_edges(G)
+    lengths = sorted((len(s) for _, s in res["contigs"]), reverse=True)
+    t0 = time.perf_counter()
+    cov = GR.coverage_fractions(genome, res["contigs"], p)
+    cov_wall = time.perf_counter() - t0
+    log(f"[yeast] assemble wall {wall:.3f}s; stages {_stage_line(stages)}")
+    log(f"[yeast] peak device memory {peak} bytes; kernel launches {launches}; "
+        f"{spy.windows} band-NW windows; {mpos.items} matching-position "
+        f"queries in {mpos.calls} calls on {sorted(mpos.devices)}; "
+        f"{len(G.edges)} edges in {'G3' if 'G3' in res['graphs'] else 'G2'}, "
+        f"{hinged} hinged (hinge_tpu {man['hinged_edges']}); {len(lengths)} "
+        f"contigs, longest {lengths[0] if lengths else 0} (hinge_tpu "
+        f"{man['contigs']}, {man['longest']} under HINGE_PARITY_ALIGN=1)")
+    log("[yeast] probes found per chromosome: "
+        + " ".join(f"{c:.3f}" for c in cov) + f" ({cov_wall:.3f}s)")
+    if spy.block is None:
+        raise AssertionError("yeast: the draft stage sent no block to band_fill")
+    q, t, m, n, mrows = spy.block
+    spy.block = None
+    log(f"[yeast] the draft's largest band-NW block: {q.shape[0]} windows, m "
+        f"{int(m.min())}..{mrows}, moves {q.shape[0] * mrows * BN_BW} bytes")
+    block_errs, block = check_block("yeast", q, t, m, n, mrows, parent,
+                                    twin_reps=1)
+    del q, t, m, n
+
+    names = GR.workdir_files(wd)
+    want = man["files"]
+    pre = [n for n in want if n not in GR.POST_DRAFT]
+    bad = GR.manifest_mismatches(wd, want, pre)
+    extra = sorted(set(names) - set(man["files"]))
+    log(f"[yeast] files written before the draft stage: "
+        f"{len(pre) - len(bad)}/{len(pre)} equal to the manifest's"
+        + (f"; differ: {bad}" if bad else "") + (f"; not in it: {extra}" if extra else ""))
+
+    # draft -> gfa again with the C DW_banded aligner, as the manifest was made
+    before = timings()
+    os.environ["HINGE_PARITY_ALIGN"] = "1"
+    try:
+        t0 = time.perf_counter()
+        rs, parts = rerun_tail(wd, fasta, las, Config.from_ini(ini))
+        tail_wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("HINGE_PARITY_ALIGN", None)
+    tail = _stage_diff(before)
+    bad_tail = GR.manifest_mismatches(wd, want, GR.POST_DRAFT)
+    log(f"[yeast] HINGE_PARITY_ALIGN=1 draft -> gfa again: {tail_wall:.3f}s "
+        f"(stages {_stage_line(tail)}); {len(GR.POST_DRAFT) - len(bad_tail)}/"
+        f"{len(GR.POST_DRAFT)} files equal to the manifest's"
+        + (f"; differ: {bad_tail}" if bad_tail else ""))
+
+    fails = []
+    if bad or extra or bad_tail:
+        fails.append(f"files differ from hinge_tpu's manifest: {bad + bad_tail}"
+                     + (f", not in it: {extra}" if extra else ""))
+    if hinged < 1:
+        fails.append("the final graph has no hinged edge")
+    if not mpos.items or mpos.devices != {"cuda"}:
+        fails.append(f"matching_position: {mpos.items} queries on {mpos.devices}")
+    if min(cov) < 0.9:
+        fails.append(f"a chromosome's probes found below 0.9: {min(cov):.3f}")
+    if fails:
+        raise AssertionError("yeast: " + "; ".join(fails))
+    _check_launches("yeast", launches)
+    log(f"[yeast] all {len(want)} files byte-equal to hinge_tpu's manifest "
+        "on cuda (graphml by networkx's ElementTree serializer on both sides)")
+    return {"wd": wd, "rs": rs, "parts": parts, "cfg": Config.from_ini(ini),
+            "stages": stages, "tasks": tasks.args, "launches": launches,
+            "windows": spy.windows, "block_errs": block_errs, "block": block}
+
+
+def phase_yeast_sharded(tmp, yeast):
+    """Phase 10c: filter, maximal and layout on 10b's reads and overlaps
+    with HINGE_SHARDED=1 over MESH_SHARDS logical shards: every file
+    byte-equal to 10b's, the layout's matching-position queries through
+    the mesh; and the sharded hinge call on the filter's hinge tasks equal
+    to the single-device op."""
+    from hinge_tpu_torch.device import to_device
+    from hinge_tpu_torch.ops.hinge_call import _hinge_kernel
+    from hinge_tpu_torch.parallel.sharding import make_mesh, run_sharded_hinge_call
+
+    wd = os.path.join(tmp, "yeast_sharded")
+    walls, queries, peak = run_sharded_stages(
+        wd, yeast["rs"], yeast["parts"], yeast["cfg"])
+    names = sorted(os.listdir(wd))
+    differ = _differing(yeast["wd"], wd, names)
+    if differ or "asm.hgraph" not in names:
+        raise AssertionError(f"sharded yeast files differ from 10b's: {differ} "
+                             f"(of {names})")
+    if queries == 0:
+        raise AssertionError("no matching-position query reached the mesh")
+    log(f"[yeast] HINGE_SHARDED=1: {len(names)} filter/maximal/layout files "
+        f"byte-equal to 10b's; {queries} sharded matching-position queries")
+    log("[yeast] sharded stage walls (10b's beside): " + ", ".join(
+        f"{k} {v:.3f}s ({yeast['stages'].get(k, 0.0):.3f}s)"
+        for k, v in walls.items()) + f"; peak device memory {peak} bytes")
+
+    if yeast["tasks"] is None:
+        raise AssertionError("the yeast filter called no hinges")
+    arrays, kw = yeast["tasks"]
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    got = run_sharded_hinge_call(*arrays, mesh, **kw)
+    want = [x.cpu().numpy() for x in _hinge_kernel(
+        *(to_device(x, "cuda") for x in arrays), **kw)]
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("sharded hinge call differs from the single-device op")
+    log(f"[yeast] run_sharded_hinge_call over {MESH_SHARDS} shards on the "
+        f"filter's {len(arrays[0])} hinge tasks ({int(want[0].sum())} "
+        "bridged): equal to the single-device op")
+    return walls
+
+
+def phase_repeats(tmp, parent):
+    """Phase 10: the repeat path (10a-10c)."""
+    t0 = time.perf_counter()
+    phase_golden_repeats()
+    yeast = phase_yeast(tmp, parent)
+    phase_yeast_sharded(tmp, yeast)
+    log(f"[repeats] phase 10 wall {time.perf_counter() - t0:.3f}s")
+    return yeast
+
+
 def main():
     phase_device()
     phase_build()
@@ -1560,14 +1876,23 @@ def main():
         las = os.path.join(tmp, "reads.las")
         surface_launches = phase_hinge_surface(tmp, rs, las)
         k3 = phase_sharded(tmp, fasta, las, p5_stages, windows, prev_k3)
+        del rs, windows
+        p10 = phase_repeats(tmp, parent)
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": launches[name], "windows_per_launch": per_launch,
-         "max_abs_err": max(errs[name], block_errs[name]),
+         "max_abs_err": max(errs[name], block_errs[name],
+                            p10["block_errs"][name]),
          **main[name], "library_ms": None,
          "phase3": {k: p3[name][k] for k in ("ms", "prev_ms", "plain_ms",
-                                              "bound_ms", "bound_by", "share")}}
+                                              "bound_ms", "bound_by", "share")},
+         "phase10": {"launches": p10["launches"][name], "windows_per_launch":
+                     p10["windows"] / max(p10["launches"][name], 1),
+                     "max_abs_err": p10["block_errs"][name],
+                     **{k: p10["block"][name][k] for k in (
+                         "ms", "prev_ms", "plain_ms", "bound_ms", "bound_by",
+                         "share")}}}
         for name in BAND_NW
     ]
     kernels.append({"name": "wave_align", "route": "cuda",

@@ -1,5 +1,6 @@
 """Copied from hinge_tpu/data/simulator.py: the logic verbatim, the imports rewritten to
-hinge_tpu_torch.
+hinge_tpu_torch, but for exact_overlaps' candidate search, which runs in
+forked processes (the same records in the same order).
 
 Synthetic read / overlap generator.
 
@@ -22,6 +23,7 @@ and advances by ``±b-disp`` per segment.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -271,6 +273,12 @@ def exact_overlaps(
     repeat (src, dst, L) a match window [src, src+L) with B shifted by
     src-dst (and the symmetric counterpart).  Repeat matches are clamped to
     the copy, like a local aligner would end at the homology boundary.
+
+    The candidate pairs are found and their records made in work units of
+    UNIT_SEGMENTS A segments, one forked process a core when there is more
+    than one unit (fork, so the read tables are shared, not copied; the
+    workers run numpy and Python only); the records, their order and the
+    duplicate rule are those of one process.
     """
     genome_len = p.genome_len
     cols = {
@@ -325,49 +333,35 @@ def exact_overlaps(
     seg_g0 = np.array([s[3] for s in seg_table], dtype=np.int64)
     seg_g1 = np.array([s[4] for s in seg_table], dtype=np.int64)
     order = np.argsort(seg_g0, kind="stable")
+    sorted_g0 = seg_g0[order]
     max_seg = int((seg_g1 - seg_g0).max()) if len(seg_table) else 0
 
+    # work units: runs of the A segments of each spec whose clamp to the
+    # spec's window is at least min_overlap long, in spec order and table
+    # order (hinge_tpu's copy tests every segment one by one, in the same
+    # order, to the same result)
+    units = []
+    for si, (sh, w0, w1) in enumerate(specs):
+        live = np.nonzero(np.minimum(seg_g1, w1) - np.maximum(seg_g0, w0)
+                          >= p.min_overlap)[0]
+        for c in range(0, len(live), UNIT_SEGMENTS):
+            units.append((si, live[c:c + UNIT_SEGMENTS].tolist()))
+    tables = (reads, p, specs, seg_table, seg_g0, seg_g1, order, sorted_g0,
+              max_seg, units)
     emitted = set()
-    for sh, w0, w1 in specs:
-        # A-frame intervals: A segments as-is; B segments shifted by sh,
-        # clamped to the window
-        for ai in range(len(seg_table)):
-            i, sa0, sa1, ga0, ga1 = seg_table[ai]
-            a_lo = max(ga0, w0)
-            a_hi = min(ga1, w1)
-            if a_hi - a_lo < p.min_overlap:
+    for made in _run_units(tables):
+        for key, vals, tr in made:
+            if key in emitted:
                 continue
-            gm_a = reads[i].gmap
-            # B candidates: segments with (gb0+sh) < a_hi and (gb1+sh) > a_lo
-            lo_idx = np.searchsorted(seg_g0[order], a_lo - sh - max_seg, side="left")
-            for oi in range(lo_idx, len(order)):
-                bi = int(order[oi])
-                gb0 = int(seg_g0[bi])
-                if gb0 + sh >= a_hi:
-                    break
-                gb1 = int(seg_g1[bi])
-                j, sb0, sb1 = seg_table[bi][0], seg_table[bi][1], seg_table[bi][2]
-                if i == j and sh == 0:
-                    continue
-                g0 = max(ga0, gb0 + sh, w0)
-                g1 = min(ga1, gb1 + sh, w1)
-                if g1 - g0 < p.min_overlap:
-                    continue
-                key = (i, j, g0, g1, sh)
-                if key in emitted:
-                    continue
-                emitted.add(key)
-                gm_b = reads[j].gmap
-                yield_overlap = _make_overlap(
-                    reads, i, j, gm_a, gm_b, sa0, sa1, sb0, sb1, g0, g1, sh, p
-                )
-                if yield_overlap is None:
-                    continue
-                rec, tr = yield_overlap
-                for rec2, tr2 in _apply_noise(rec, tr, p, noise_rng):
-                    for k, v in rec2.items():
-                        cols[k].append(v)
-                    trace_chunks.append(tr2)
+            emitted.add(key)
+            if vals is None:
+                continue
+            rec = dict(zip(_COLUMNS, vals))
+            tr = np.frombuffer(tr, dtype=np.uint16)
+            for rec2, tr2 in _apply_noise(rec, tr, p, noise_rng):
+                for k, v in rec2.items():
+                    cols[k].append(v)
+                trace_chunks.append(tr2)
 
     trace = (
         np.concatenate(trace_chunks) if trace_chunks else np.zeros(0, dtype=np.uint16)
@@ -376,6 +370,90 @@ def exact_overlaps(
         tspace=p.tspace, trace=trace, **{k: np.asarray(v, dtype=np.int64).astype(INT) if len(v) else np.zeros(0, INT) for k, v in cols.items()}
     )
     return store.sort_by_a()
+
+
+#: the columns of an overlap record, in the order _make_overlap builds them
+_COLUMNS = tuple("a_id b_id a_len b_len a_start a_end b_start b_end rc diffs "
+                 "tlen".split())
+#: A segments per work unit of exact_overlaps
+UNIT_SEGMENTS = 256
+#: exact_overlaps' tables in a forked worker, set by _init_worker
+_WORKER_TABLES = None
+
+
+def _unit(tables, u):
+    """The candidate pairs that work unit `u` of exact_overlaps meets, in
+    the order one process meets them: (key, record values or None, trace
+    bytes or None) for each key not met before inside the unit."""
+    (reads, p, specs, seg_table, seg_g0, seg_g1, order, sorted_g0, max_seg,
+     units) = tables
+    si, ais = units[u]
+    sh, w0, w1 = specs[si]
+    seen = set()
+    out = []
+    for ai in ais:
+        i, sa0, sa1, ga0, ga1 = seg_table[ai]
+        a_lo = max(ga0, w0)
+        a_hi = min(ga1, w1)
+        gm_a = reads[i].gmap
+        # B candidates: segments with (gb0+sh) < a_hi and (gb1+sh) > a_lo
+        lo_idx = np.searchsorted(sorted_g0, a_lo - sh - max_seg, side="left")
+        for oi in range(lo_idx, len(order)):
+            bi = int(order[oi])
+            gb0 = int(seg_g0[bi])
+            if gb0 + sh >= a_hi:
+                break
+            gb1 = int(seg_g1[bi])
+            j, sb0, sb1 = seg_table[bi][0], seg_table[bi][1], seg_table[bi][2]
+            if i == j and sh == 0:
+                continue
+            g0 = max(ga0, gb0 + sh, w0)
+            g1 = min(ga1, gb1 + sh, w1)
+            if g1 - g0 < p.min_overlap:
+                continue
+            key = (i, j, g0, g1, sh)
+            if key in seen:
+                continue
+            seen.add(key)
+            made = _make_overlap(
+                reads, i, j, gm_a, reads[j].gmap, sa0, sa1, sb0, sb1, g0, g1, sh, p
+            )
+            if made is None:
+                out.append((key, None, None))
+            else:
+                out.append((key, tuple(made[0][c] for c in _COLUMNS),
+                            made[1].tobytes()))
+    return out
+
+
+def _init_worker(tables):
+    global _WORKER_TABLES
+    _WORKER_TABLES = tables
+
+
+def _worker_unit(u):
+    return _unit(_WORKER_TABLES, u)
+
+
+def _run_units(tables):
+    """The outputs of exact_overlaps' work units in order: in this process
+    when there is one unit or one core, else in one forked process a core
+    (the fork hands `tables` to the workers without copying them)."""
+    n_units = len(tables[-1])
+    workers = min(os.cpu_count() or 1, n_units)
+    if workers < 2:
+        yield from (_unit(tables, u) for u in range(n_units))
+        return
+    import multiprocessing
+
+    pool = multiprocessing.get_context("fork").Pool(
+        workers, initializer=_init_worker, initargs=(tables,))
+    try:
+        yield from pool.imap(_worker_unit, range(n_units), chunksize=4)
+        pool.close()
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 def _seg_bounds(a_start: int, a_end: int, tsp: int) -> np.ndarray:

@@ -19,7 +19,14 @@ FILES = [
 ]
 
 
-def build(tmpdir: str, device) -> str:
+#: tests/test_golden.py's dataset
+PARAMS = dict(genome_len=30_000, coverage=14.0, mean_read_len=4000,
+              std_read_len=900, seed=77)
+
+
+def build(tmpdir: str, device, params=PARAMS, prefix="G") -> str:
+    """The five stages on `params`' reads and overlaps into
+    `tmpdir`/`prefix`.*; returns that prefix."""
     from hinge_tpu_torch.config import nominal_config
     from hinge_tpu_torch.data.simulator import SimParams, simulate
     from hinge_tpu_torch.stages.clip import run_clip
@@ -28,11 +35,9 @@ def build(tmpdir: str, device) -> str:
     from hinge_tpu_torch.stages.layout import load_marked, run_layout
     from hinge_tpu_torch.stages.maximal import run_maximal
 
-    p = SimParams(genome_len=30_000, coverage=14.0, mean_read_len=4000,
-                  std_read_len=900, seed=77)
-    genome, reads, rs, ov = simulate(p)
+    genome, reads, rs, ov = simulate(SimParams(**params))
     cfg = nominal_config()
-    prefix = os.path.join(tmpdir, "G")
+    prefix = os.path.join(tmpdir, prefix)
     fres = run_filter(rs, [ov], cfg, out_prefix=prefix, device=device)
     eff_s = fres.maskvec[:, 0].astype(np.int32)
     eff_e = fres.maskvec[:, 1].astype(np.int32)
@@ -49,12 +54,12 @@ def build(tmpdir: str, device) -> str:
     return prefix
 
 
-def mismatches(tmpdir: str):
+def mismatches(tmpdir: str, files=FILES, golden_dir=GOLDEN_DIR):
     """Golden files whose bytes differ from the ones build() wrote."""
     bad = []
-    for f in FILES:
+    for f in files:
         with open(os.path.join(tmpdir, f), "rb") as got, \
-                open(os.path.join(GOLDEN_DIR, f), "rb") as want:
+                open(os.path.join(golden_dir, f), "rb") as want:
             if got.read() != want.read():
                 bad.append(f)
     return bad
