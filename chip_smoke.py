@@ -107,7 +107,19 @@ and the exit code is nonzero:
              HINGE_MESH_SHARDS=4, every file byte-equal to (b)'s, with
              matching-position queries through the mesh, and the sharded
              hinge call on the filter's hinge tasks equal to the
-             single-device op.
+             single-device op;
+11. measurement entry points (hinge_tpu_torch.bench) — (a) bench's
+             device chain on its 2,000,000 records: the chain's outputs on
+             cuda equal to the same chain on the CPU, then records/s,
+             vs_baseline and sol_frac against the H100's HBM speed of
+             light, and the sharded step at 1, 2 and 4 logical shards of
+             the card; (b) the window-DP twin on its 2,048 windows (C
+             DW_banded, band-NW, K3), whose K3 rows must equal the C rows
+             and whose band-NW kernel rows must equal the plain twins'
+             rows; (c) the draft A/B on phase 5's reads and .las (the
+             verbs through draft-path, then each arm in a child process),
+             whose band-NW arm must launch both K1 and K2 and whose C arm
+             must launch neither.  Each result is printed as a JSON line.
 
 Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
@@ -1551,9 +1563,8 @@ def phase_nccl():
     """Phase 9d: the sharded filter step across processes on NCCL, one
     rank per card with 2 logical shards each; the all-gathered masks must
     equal the single-device masks."""
-    from hinge_tpu_torch.device import to_device
     from hinge_tpu_torch.parallel.dryrun import (
-        _filter_chain, run_multiprocess, worker_inputs,
+        run_multiprocess, single_device_masks, worker_inputs,
     )
 
     world = torch.cuda.device_count()
@@ -1563,10 +1574,7 @@ def phase_nccl():
     if not all("backend=nccl" in line for line in lines):
         raise AssertionError(f"the ranks did not run on NCCL: {lines}")
     a_id, a_start, a_end, read_len, nb = worker_inputs()
-    _, ms, mev, _ = _filter_chain(
-        *(to_device(x, "cuda") for x in (a_id, a_start, a_end)),
-        n_reads=len(read_len), nb=nb)
-    want = np.stack([ms.cpu().numpy(), mev.cpu().numpy()], 1)
+    want = single_device_masks("cuda", a_id, a_start, a_end, len(read_len), nb)
     if not all(np.array_equal(m, want) for m in masks):
         raise AssertionError("NCCL masks differ from the single-device masks")
     log(f"[nccl] world {world} (one rank per card, 2 logical shards each): "
@@ -1856,6 +1864,44 @@ def phase_repeats(tmp, parent):
     return yeast
 
 
+def phase_measurement(tmp, rs, las):
+    """Phase 11: the measurement entry points of hinge_tpu_torch.bench on
+    the card (11a-11c); each result on a JSON line of its own."""
+    from hinge_tpu_torch.bench import bench as B
+    from hinge_tpu_torch.bench import bench_draft_ab as AB
+    from hinge_tpu_torch.bench import bench_window_dp as W
+    from hinge_tpu_torch.device import to_device
+
+    t0 = time.perf_counter()
+    a_id, a_start, a_end, _ = B.synth()
+    hg = B.synth_hinge()
+    got, want = ([x.cpu() for x in B.step(
+        *(to_device(x, dev) for x in (a_id, a_start, a_end)),
+        {k: to_device(v, dev) for k, v in hg.items()})]
+        for dev in ("cuda", "cpu"))
+    err = _max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"bench's chain on cuda differs from the CPU's "
+                             f"(max abs err {err})")
+    primary, _ = B.headline("cuda")
+    if not primary["value"] > 0 or not 0 < primary["sol_frac"] < 1:
+        raise AssertionError(f"bench headline out of range: {primary}")
+    print(json.dumps({"bench": primary}), flush=True)
+    print(json.dumps({"scaling": B._scaling("cuda")}), flush=True)
+    t1 = time.perf_counter()
+    qs, ts = W.windows(2048)
+    print(json.dumps({"window_dp": W.run(qs, ts, device="cuda")}), flush=True)
+    t2 = time.perf_counter()
+    wd = os.path.join(tmp, "draft_ab")
+    AB.prepare(wd, GENOME_LEN, COVERAGE, device="cuda", rs=rs, las=las)
+    arms = AB.compare(wd, device="cuda")
+    print(json.dumps({"draft_ab": arms}), flush=True)
+    log(f"[measure] phase 11 wall {time.perf_counter() - t0:.3f}s: bench "
+        f"{t1 - t0:.3f}s, window DP {t2 - t1:.3f}s, draft A/B "
+        f"{time.perf_counter() - t2:.3f}s; bench's chain on cuda equal to "
+        f"the CPU's (max abs err 0)")
+
+
 def main():
     phase_device()
     phase_build()
@@ -1876,8 +1922,10 @@ def main():
         las = os.path.join(tmp, "reads.las")
         surface_launches = phase_hinge_surface(tmp, rs, las)
         k3 = phase_sharded(tmp, fasta, las, p5_stages, windows, prev_k3)
-        del rs, windows
+        del windows
         p10 = phase_repeats(tmp, parent)
+        phase_measurement(tmp, rs, las)
+        del rs
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

@@ -22,6 +22,7 @@ filter_worker():     one process of the multi-process filter step (one
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import numpy as np
@@ -322,19 +323,14 @@ def worker_inputs():
     return a_id, a_start, a_end, read_len, maxlen // reso + 3
 
 
-def filter_worker(rank: int, world: int, port: int, device: str,
-                  shards: int = 2, out: str = "") -> str:
-    """One process of the multi-process sharded filter step: joins the
-    group (NCCL on CUDA, gloo on the CPU), holds `shards` logical shards
-    of its device as whole 'reads' rows of a (shards * world, 1) mesh,
-    runs the step, and checks the all-gathered masks against the
-    single-device masks (and writes them to `out`, an .npy path)."""
+@contextlib.contextmanager
+def joined(rank: int, world: int, port: int, device: str):
+    """This process as rank `rank` of a `world`-process group on
+    localhost:`port`: NCCL on CUDA with card `rank`, gloo on the CPU.
+    Yields the rank's device and leaves the group on exit."""
     import torch.distributed as dist
 
-    from hinge_tpu_torch.parallel.distributed import host_read_range, init_distributed
-    from hinge_tpu_torch.parallel.sharding import (
-        process_mesh, shard_records, sharded_filter_step,
-    )
+    from hinge_tpu_torch.parallel.distributed import init_distributed
 
     dev = torch.device("cuda", rank) if torch.device(device).type == "cuda" \
         else torch.device("cpu")
@@ -344,29 +340,54 @@ def filter_worker(rank: int, world: int, port: int, device: str,
     try:
         if (pi, pc) != (rank, world):
             raise AssertionError(f"rank/world {(pi, pc)} != {(rank, world)}")
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def process_filter_step(dev, shards, a_id, a_start, a_end, read_len, nb):
+    """(mesh, step, host arguments) of the sharded filter step across the
+    process group, this process holding `shards` logical shards of `dev`
+    as whole 'reads' rows."""
+    from hinge_tpu_torch.parallel.sharding import prepare_filter_step, process_mesh
+
+    mesh = process_mesh([dev] * shards)
+    step, args, _ = prepare_filter_step(a_id, a_start, a_end, read_len, mesh, nb)
+    return mesh, step, args
+
+
+def single_device_masks(dev, a_id, a_start, a_end, n_reads, nb) -> np.ndarray:
+    """The single-device filter chain's masks on `dev`, (n_reads, 2)."""
+    _, ms, mev, _ = _filter_chain(
+        *(to_device(x, dev) for x in (a_id, a_start, a_end)),
+        n_reads=n_reads, nb=nb)
+    return np.stack([ms.cpu().numpy(), mev.cpu().numpy()], 1)
+
+
+def filter_worker(rank: int, world: int, port: int, device: str,
+                  shards: int = 2, out: str = "") -> str:
+    """One process of the multi-process sharded filter step: joins the
+    group (NCCL on CUDA, gloo on the CPU), holds `shards` logical shards
+    of its device as whole 'reads' rows of a (shards * world, 1) mesh,
+    runs the step, and checks the all-gathered masks against the
+    single-device masks (and writes them to `out`, an .npy path)."""
+    import torch.distributed as dist
+
+    from hinge_tpu_torch.parallel.distributed import host_read_range
+
+    with joined(rank, world, port, device) as dev:
         a_id, a_start, a_end, read_len, nb = worker_inputs()
         n_reads = len(read_len)
-        mesh = process_mesh([dev] * shards)
-        a_rel, a_s, a_e, reads_chunk = shard_records(a_id, a_start, a_end,
-                                                     n_reads, mesh)
-        R = mesh.shape["reads"]
-        rl = np.concatenate(
-            [read_len, np.zeros(R * reads_chunk - n_reads, read_len.dtype)]
-        ).reshape(R, reads_chunk)
-        step = sharded_filter_step(mesh, reads_chunk=reads_chunk, nb=nb)
-        _, masks, _ = step(a_rel, a_s, a_e, rl)
+        mesh, step, args = process_filter_step(dev, shards, a_id, a_start,
+                                               a_end, read_len, nb)
+        _, masks, _ = step(*args)
         masks = masks.cpu().numpy()[:n_reads]
-        _, ms, mev, _ = _filter_chain(
-            *(to_device(x, dev) for x in (a_id, a_start, a_end)),
-            n_reads=n_reads, nb=nb)
-        _equal("multi-process masks", masks,
-               np.stack([ms.cpu().numpy(), mev.cpu().numpy()], 1))
+        _equal("multi-process masks", masks, single_device_masks(
+            dev, a_id, a_start, a_end, n_reads, nb))
         if out:
             np.save(out, masks)
         lo_r, hi_r = host_read_range(n_reads, rank, world)
         backend = dist.get_backend()
-    finally:
-        dist.destroy_process_group()
     return (f"MULTIPROCESS_OK {rank}/{world} backend={backend} "
             f"shards={mesh.size} range=[{lo_r},{hi_r})")
 

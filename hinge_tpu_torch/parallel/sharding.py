@@ -341,10 +341,21 @@ def run_sharded_filter(
     **params,
 ):
     """Host-side wrapper: shard, place, and execute one filter step."""
-    n_reads = len(read_len)
     reso = params.get("reso", 40)
     if nb is None:
         nb = int(read_len.max()) // reso + 3
+    step, args, reads_chunk = prepare_filter_step(a_id, a_start, a_end,
+                                                  read_len, mesh, nb, **params)
+    cov, masks, ann = step(*args)
+    return cov, masks, ann, reads_chunk
+
+
+def prepare_filter_step(a_id, a_start, a_end, read_len, mesh: Mesh, nb: int,
+                        **params):
+    """(step, its host arguments, reads a shard): the records sharded for
+    `mesh` and the filter step built over it, so that the step can run
+    again on the same arguments."""
+    n_reads = len(read_len)
     a_rel, a_s, a_e, reads_chunk = shard_records(a_id, a_start, a_end, n_reads, mesh)
     R = mesh.shape["reads"]
     pad_reads = R * reads_chunk - n_reads
@@ -352,8 +363,7 @@ def run_sharded_filter(
         R, reads_chunk
     )
     step = sharded_filter_step(mesh, reads_chunk=reads_chunk, nb=nb, **params)
-    cov, masks, ann = step(a_rel, a_s, a_e, rl)
-    return cov, masks, ann, reads_chunk
+    return step, (a_rel, a_s, a_e, rl), reads_chunk
 
 
 def run_sharded_profiles(

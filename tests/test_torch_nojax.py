@@ -204,3 +204,34 @@ def test_unported_switches_raise(shards, tmp_path, monkeypatch):
     for name in SHARDED_FILES:
         assert (tmp_path / "w" / name).read_bytes() == \
             (tmp_path / "single" / name).read_bytes(), name
+
+
+def test_bench_entry_points_import_without_jax(tmp_path):
+    """hinge_tpu_torch.bench and every one of its modules (the twins of
+    the repo-root JAX scripts) import in a fresh interpreter without
+    loading jax or hinge_tpu, and each names its source script in its
+    first docstring line."""
+    code = """
+import importlib, pkgutil, sys
+import hinge_tpu_torch.bench as pkg
+names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
+twins = {"bench": "bench.py", "bench_window_dp": "bench_window_dp.py",
+         "bench_e2e": "bench_tpu_e2e.py", "bench_draft_ab": "bench_draft_ab.py",
+         "profile_mapcons": "profile_mapcons.py",
+         "bench_multihost": "bench_multihost.py"}
+assert set(names) == {pkg.__name__ + "." + n for n in [*twins, "__main__"]}, names
+for name in names:
+    mod = importlib.import_module(name)
+    short = name.rsplit(".", 1)[1]
+    if short in twins:
+        assert mod.__doc__.splitlines()[0].startswith(
+            f"Port of `{twins[short]}`"), name
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m.split(".")[0] == "hinge_tpu"]
+print("NOJAX_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX_OK" in r.stdout
