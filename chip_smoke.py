@@ -7,7 +7,9 @@ row_traceback.cu of commit PARENT, wave_align.cu of commit PREV_K3) where
 the checkout has no git history.
 
 Runs hinge_tpu_torch on one CUDA card, phase by phase; any failure raises
-and the exit code is nonzero:
+and the exit code is nonzero.  On cuda the overlap join and the consensus
+vote run on the card unless HINGE_DEVICE_JOIN=0 / HINGE_DEVICE_VOTE=0, so
+every assemble() and consensus verb below takes the device vote:
 
 1. device  — a CUDA card must be present; prints its name and the
              `nvidia-smi` name/power-limit line;
@@ -35,15 +37,21 @@ and the exit code is nonzero:
              (overlap_base_records on cuda) must give records equal to
              the C join's (map_reads_to_targets, half pairs)
              on every column and trace byte; prints both walls, per-phase
-             times, blocks, hits and peak device memory.  Then the trim
+             times, blocks, hits and peak device memory.  The same on
+             phase 5's reads with reads cut from them interleaved (fewer
+             than k + w bases, some prefixes 70 times over, so that index
+             buckets overflow).  A read set of MAX_TID reads must make
+             overlap_reads on cuda raise under the default switches,
+             naming the gate and HINGE_DEVICE_JOIN=0.  Then the trim
              lattice (ops/classify.trim_overlaps) on cuda must equal the
              native trim on the maximal stage's rows of phase 5's .las
              records; prints both times;
-7. fasta only — assemble() from the reads alone with HINGE_DEVICE_JOIN=1
-             and HINGE_DEVICE_VOTE=1, which must run the device join, the
-             device vote and both kernels and yield a contig >= 0.9 of the
-             genome; the consensus stage rerun on the same draft with the
-             native C vote must write a byte-equal X.consensus.fasta;
+7. fasta only — assemble() from the reads alone with HINGE_DEVICE_JOIN
+             and HINGE_DEVICE_VOTE unset, which on cuda must run the device
+             join, the device vote (their launch counters) and both kernels
+             and yield a contig >= 0.9 of the genome; the consensus stage
+             rerun on the same draft with HINGE_DEVICE_VOTE=0 (the native
+             C vote) must write a byte-equal X.consensus.fasta;
 8. hinge surface — phase 5's reads written as reads.db with their qual
              track (so the filter's QV mask runs on the card) and its
              reads.las, through the per-stage verbs of hinge_tpu_torch.cli
@@ -157,6 +165,9 @@ KERNELS = {
 }
 #: the kernels phases 3 and 5 check and time (K3 is phase 9's)
 BAND_NW = ("band_fill", "row_traceback")
+#: phase 6's cut reads: fewer than k = 15 bases, 1 to w-1 = 11 k-mers,
+#: one window (k + w = 27 is the shortest read hinge_tpu's join takes)
+SHORT_LENS = (5, 14, 15, 16, 20, 25, 26)
 
 #: the stage files that hinge_tpu's per-stage CLI chain and its
 #: assemble(db=, las=) write byte-equal (tests/test_torch_cli.py shows it on
@@ -812,6 +823,8 @@ def phase_device_join(rs):
         ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")))
     log(f"[join] {stats['blocks']} blocks, {stats['hits']} half-pair seed "
         f"hits; peak device memory {peak} bytes")
+    phase_join_short_reads(rs)
+    phase_join_gate()
     ops = [{"name": "device_join", "source": "hinge_tpu_torch/overlap/device_join.py",
             "replaces": "hinge_tpu/overlap/device_join.py:677",
             "ms": dev_walls[1] * 1e3, "c_ms": c_walls[1] * 1e3,
@@ -819,6 +832,91 @@ def phase_device_join(rs):
     ops += [{"name": f"device_join.{k}", "ms": stats[k] * 1e3}
             for k in ("minimizer", "index", "p1", "p2", "p3", "p4")]
     return ops
+
+
+def with_short_reads(rs, seed=1):
+    """`rs`'s reads with reads cut from them interleaved: 30 of each of
+    SHORT_LENS bases (fewer than k, one to w-1 k-mers, one window) from
+    random places, and 70 copies of the 24-base prefix of 20 reads, which
+    overflow their minimizers' index buckets (max_bucket 64)."""
+    from hinge_tpu_torch.data.overlaps import ReadStore
+
+    rng = np.random.default_rng(seed)
+    cut = []
+    for n in SHORT_LENS:
+        for r in rng.integers(0, rs.n_reads, 30):
+            read = rs.get_bases(int(r))
+            s = int(rng.integers(0, len(read) - n))
+            cut.append(read[s : s + n])
+    cut += [rs.get_bases(int(r))[:24]
+            for r in np.linspace(0, rs.n_reads - 1, 20) for _ in range(70)]
+    out = []
+    for i in range(rs.n_reads):
+        out.append(rs.get_bases(i))
+        if i < len(cut):
+            out.append(cut[i])
+    out += cut[rs.n_reads:]
+    lens = np.array([len(r) for r in out], np.int32)
+    off = np.zeros(len(out) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return ReadStore(length=lens, bases_off=off,
+                     bases=np.concatenate(out).astype(np.uint8))
+
+
+def phase_join_short_reads(rs):
+    """Phase 5's reads with reads shorter than k + w among them: the device
+    join on cuda must equal the C join record for record."""
+    from hinge_tpu_torch.overlap import device_join as DJ
+    from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
+
+    srs = with_short_reads(rs)
+    n_short = int((srs.length < 27).sum())
+    t0 = time.perf_counter()
+    ref = map_reads_to_targets([srs.get_bases(i) for i in range(srs.n_reads)],
+                               srs, half_pairs=True)
+    c_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = DJ.overlap_base_records(srs, device="cuda")
+    torch.cuda.synchronize()
+    dev_wall = time.perf_counter() - t0
+    if got is None:
+        raise AssertionError("the device join refused reads shorter than k + w")
+    _assert_stores_equal(got, ref)
+    log(f"[join] {srs.n_reads} reads, {n_short} of them shorter than k + w "
+        f"= 27 bases: {ref.n} records equal to the C join's (device join "
+        f"{dev_wall:.3f}s, C join {c_wall:.3f}s)")
+
+
+def phase_join_gate():
+    """A read set past the device join's MAX_TID gate: with the switch
+    unset, overlap_reads on cuda must raise, naming the gate and
+    HINGE_DEVICE_JOIN=0, and never run the C join."""
+    from hinge_tpu_torch.data.overlaps import ReadStore
+    from hinge_tpu_torch.overlap import device_join as DJ
+    from hinge_tpu_torch.overlap import mapper as M
+
+    lens = np.full(DJ.MAX_TID, 30, np.int32)
+    off = np.arange(DJ.MAX_TID + 1, dtype=np.int64) * 30
+    rs = ReadStore(length=lens, bases_off=off,
+                   bases=np.zeros(int(off[-1]), np.uint8))
+    os.environ.pop("HINGE_DEVICE_JOIN", None)
+    real = M.map_reads_to_targets
+
+    def no_c_join(*a, **kw):
+        raise AssertionError("the C join ran on a gated input")
+
+    M.map_reads_to_targets = no_c_join
+    try:
+        M.overlap_reads(rs, device="cuda")
+    except ValueError as e:
+        if "MAX_TID" not in str(e) or "HINGE_DEVICE_JOIN=0" not in str(e):
+            raise AssertionError(f"the gate's error does not name the gate "
+                                 f"and HINGE_DEVICE_JOIN=0: {e}")
+        log(f"[join] {DJ.MAX_TID} reads under the default: {e}")
+    else:
+        raise AssertionError("a read set past MAX_TID ran under the default")
+    finally:
+        M.map_reads_to_targets = real
 
 
 def phase_trim(rs, ov):
@@ -896,8 +994,9 @@ class _Timed:
 
 
 def phase_fasta_only(tmp, fasta):
-    """assemble() from the reads alone with the device join and the device
-    vote, then the consensus stage again with the native C vote."""
+    """assemble() from the reads alone with both device switches unset,
+    which must run the device join and the device vote, then the consensus
+    stage again with HINGE_DEVICE_VOTE=0 (the native C vote)."""
     from hinge_tpu_torch.config import nominal_config
     from hinge_tpu_torch.data.overlaps import str_to_codes
     from hinge_tpu_torch.io.fasta import read_fasta
@@ -910,22 +1009,18 @@ def phase_fasta_only(tmp, fasta):
     from hinge_tpu_torch.utils.log import timings
 
     wd = os.path.join(tmp, "fasta_only")
-    os.environ["HINGE_DEVICE_JOIN"] = "1"
-    os.environ["HINGE_DEVICE_VOTE"] = "1"
-    try:
-        _zero(BN.launches, DJ.launches, CV.launches)
-        before = timings()
-        torch.cuda.reset_peak_memory_stats()
-        with _Timed(CV, "vote_tallies_device") as vote:
-            t0 = time.perf_counter()
-            res = assemble(fasta=fasta, workdir=wd, device="cuda",
-                           log=lambda *a: None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = {**BN.launches, **DJ.launches, **CV.launches}
-    finally:
-        os.environ.pop("HINGE_DEVICE_JOIN", None)
-        os.environ.pop("HINGE_DEVICE_VOTE", None)
+    os.environ.pop("HINGE_DEVICE_JOIN", None)
+    os.environ.pop("HINGE_DEVICE_VOTE", None)
+    _zero(BN.launches, DJ.launches, CV.launches)
+    before = timings()
+    torch.cuda.reset_peak_memory_stats()
+    with _Timed(CV, "vote_tallies_device") as vote:
+        t0 = time.perf_counter()
+        res = assemble(fasta=fasta, workdir=wd, device="cuda",
+                       log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {**BN.launches, **DJ.launches, **CV.launches}
     peak = torch.cuda.max_memory_allocated()
     stages = _stage_diff(before)
     log(f"[fasta] assemble wall {wall:.3f}s; stages "
@@ -938,20 +1033,26 @@ def phase_fasta_only(tmp, fasta):
     rs = read_fasta(fasta)
     aln = map_reads_to_targets([str_to_codes(s) for _, s in res["draft"]], rs)
     native_fa = os.path.join(tmp, "native_vote.consensus.fasta")
-    with _Timed(SC, "_native_vote_tallies") as cvote:
-        t0 = time.perf_counter()
-        SC.run_consensus(res["draft"], rs, aln, nominal_config(),
-                         out_fasta=native_fa, device="cuda")
-        c_cons = time.perf_counter() - t0
+    os.environ["HINGE_DEVICE_VOTE"] = "0"
+    try:
+        with _Timed(SC, "_native_vote_tallies") as cvote:
+            t0 = time.perf_counter()
+            SC.run_consensus(res["draft"], rs, aln, nominal_config(),
+                             out_fasta=native_fa, device="cuda")
+            c_cons = time.perf_counter() - t0
+    finally:
+        os.environ.pop("HINGE_DEVICE_VOTE", None)
+    if cvote.calls == 0:
+        raise AssertionError("HINGE_DEVICE_VOTE=0 did not run the native vote")
     with open(os.path.join(wd, "asm.consensus.fasta"), "rb") as f:
         dev_bytes = f.read()
     with open(native_fa, "rb") as f:
         if f.read() != dev_bytes:
             raise AssertionError("device-vote consensus differs from the "
                                  "native-vote consensus")
-    log(f"[fasta] consensus FASTA ({len(dev_bytes)} bytes) byte-equal to the "
-        f"native-vote rerun; vote {vote.seconds:.3f}s on cuda over "
-        f"{vote.calls} contigs vs native C vote {cvote.seconds:.3f}s; "
+    log(f"[fasta] consensus FASTA ({len(dev_bytes)} bytes, the default "
+        f"switches) byte-equal to the HINGE_DEVICE_VOTE=0 rerun; vote "
+        f"{vote.seconds:.3f}s on cuda over {vote.calls} contigs vs native C vote {cvote.seconds:.3f}s; "
         f"consensus stage {stages.get('consensus', 0.0):.3f}s vs {c_cons:.3f}s")
     ops = [{"name": "vote", "source": "hinge_tpu_torch/ops/consensus_vote.py",
             "replaces": "hinge_tpu/ops/consensus_vote.py:168",

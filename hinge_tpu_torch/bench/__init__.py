@@ -16,6 +16,10 @@ Each module is the twin of one script and keeps its function names:
 - `bench_multihost`  <- bench_multihost.py: the sharded filter step across
                         processes (NCCL, one rank a card; gloo on the CPU).
 
+One module has no JAX script: `bench_defaults_ab`, assemble() from FASTA
+with the C join and the native vote against the device join and the
+device vote (the CUDA defaults), in alternating runs.
+
 Each runs as `python -m hinge_tpu_torch.bench.<name>`.  The device is
 cuda unless `--device cpu` is passed; without a card every entry point
 raises `hinge_tpu_torch.device.DeviceError` before it does any work.  No

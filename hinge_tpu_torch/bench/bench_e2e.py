@@ -39,12 +39,13 @@ COUNTED = (("draft", "hinge_tpu_torch.ops.band_nw"),
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def simulate_reads(genome_len, coverage):
-    """`simulate(SimParams(genome_len, coverage, seed=0))`'s genome and
-    read store, without its overlap records."""
+def simulate_reads(genome_len, coverage, **errors):
+    """`simulate(SimParams(genome_len, coverage, seed=0, **errors))`'s
+    genome and read store, without its overlap records."""
     from hinge_tpu_torch.data import simulator as S
 
-    p = S.SimParams(genome_len=genome_len, coverage=coverage, seed=0)
+    p = S.SimParams(genome_len=genome_len, coverage=coverage, seed=0,
+                    **errors)
     rng = np.random.default_rng(p.seed)
     genome = S.make_genome(p, rng)
     reads = S.sample_reads(p, rng, genome)

@@ -10,7 +10,7 @@ emission), `map_reads_to_targets` (onto the draft's contigs) and
 table, the top 20 by cumulative seconds, with own seconds and calls.
 As in the JAX script, passing --device puts the consensus vote on that
 device (HINGE_DEVICE_VOTE=1); without it the device ops run on cuda and
-the vote on the host.
+the vote on the host (HINGE_DEVICE_VOTE=0, the native C vote).
 
     python -m hinge_tpu_torch.bench.profile_mapcons [genome_len] [--device cuda|cpu]
 """
@@ -94,8 +94,7 @@ def profile(genome_len, coverage, *, device, device_vote=False,
         wd = os.path.join(tmp, "asm")
         os.makedirs(wd)
         vote = os.environ.get("HINGE_DEVICE_VOTE")
-        if device_vote:
-            os.environ["HINGE_DEVICE_VOTE"] = "1"
+        os.environ["HINGE_DEVICE_VOTE"] = "1" if device_vote else "0"
         try:
             _assemble_body(fasta, "", "", las, wd, False, False,
                            os.path.join(wd, "asm"), nominal_config(), log,

@@ -29,6 +29,10 @@ What differs from hinge_tpu, and why it gives the same records:
   * Multi-key stable sorts pack (read, group key) into one int64; the
     (row, q, t) sort is two stable passes, t first.
 
+  * Reads shorter than k + w run: a stream of fewer than w k-mers gets
+    the C join's one minimizer at its first minimum.  hinge_tpu gates
+    them off.
+
 The key-packing gates of hinge_tpu stay (`join_gate`): where one fails,
 overlap_base_records returns None.
 """
@@ -139,7 +143,9 @@ def minimizers(packed, code_off, lens, r0: int, r1: int, x_len: int,
 
     A window touching an invalid k-mer start (the k-1 tail of a stream)
     resolves to the pad key (h=0, pos=-1) and is discarded, which is the
-    per-stream window semantics (w <= k).  Returns the query minimizers
+    per-stream window semantics (w <= k).  A stream of fewer than w
+    k-mers gets its first minimum, and one shorter than k nothing, as in
+    the C join.  Returns the query minimizers
     (mh flipped hash, mpos, msid) and the forward-stream index entries
     (ih, itid, ipos), int64, in position order."""
     _count("minimizer", packed)
@@ -178,6 +184,21 @@ def minimizers(packed, code_off, lens, r0: int, r1: int, x_len: int,
                                  _shift(mins[p2b][1], w - p2b, -1)))
     sel = torch.zeros(x_len + 1, dtype=torch.bool, device=dev)
     sel[torch.where(wp >= 0, wp, x_len)] = True
+    # a stream of 1..w-1 k-mers has no whole window: it gets one
+    # minimizer, at the first minimum of its k-mers (mapper.minimizers)
+    n_kmers = slen - k + 1
+    short = (n_kmers >= 1) & (n_kmers < w)
+    if bool(short.any()):
+        sp = torch.nonzero(valid & short[sid]).squeeze(1)
+        s_id, s_key = sid[sp], key[sp]
+        n_st = slen.shape[0]
+        s_min = torch.full((n_st,), (1 << 63) - 1, dtype=_I64,
+                           device=dev).scatter_reduce_(0, s_id, s_key, "amin")
+        at_min = s_key == s_min[s_id]
+        first = torch.full((n_st,), x_len, dtype=_I64,
+                           device=dev).scatter_reduce_(
+            0, s_id[at_min], sp[at_min], "amin")
+        sel[first[short]] = True
     m = torch.nonzero(sel[:x_len]).squeeze(1)
     mh, mpos, msid = key[m], off_in[m], sid[m]
     fwd = torch.nonzero((msid & 1) == 0).squeeze(1)
@@ -212,7 +233,7 @@ def join_hits(sh, stid, spos, entry_valid, mh, mpos, msid, r0: int,
     lo = torch.searchsorted(sh, mh, right=False)
     cnt = torch.searchsorted(sh, mh, right=True) - lo
     # over-full buckets: every hit would be dropped, so expand none (the
-    # index is not empty: join_gate leaves every read a window)
+    # caller never passes an empty index)
     cnt = torch.where(entry_valid[torch.clamp(lo, max=n_idx - 1)], cnt, 0)
     offs = _excl_cumsum(cnt)
     total = int(cnt.sum())
@@ -411,22 +432,39 @@ def emit_traces(f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb,
 
 
 def join_gate(rs: ReadStore, k: int, w: int, band_width: int) -> Optional[str]:
-    """The key-packing gates of hinge_tpu's device join (its :693-701):
-    the reason the join cannot run on `rs`, or None when it can."""
-    if rs.bases is None or rs.n_reads == 0:
+    """The key-packing gates of hinge_tpu's device join (its :693-701),
+    less its short-read gate: the reason the join cannot run on `rs`, or
+    None when it can.  Reads shorter than k + w run (see minimizers)."""
+    if rs.bases is None:
         return "no read bases"
+    if rs.n_reads == 0:
+        return None
     lens = rs.length.astype(np.int64)
     if rs.n_reads >= MAX_TID:
         return f"{rs.n_reads} reads >= MAX_TID = {MAX_TID}"
     if int(lens.max()) >= (1 << 24):
         return f"a read of {int(lens.max())} bases >= 2^24"
-    if int(lens.min()) < k + w:
-        return f"a read of {int(lens.min())} bases < k + w = {k + w}"
     if w > k:
         return f"w = {w} > k = {k}"
     if (2 * int(lens.max())) // band_width + 2 >= (1 << BANDBITS):
         return f"band_rel of a {int(lens.max())}-base read overflows {BANDBITS} bits"
     return None
+
+
+def _cache_minimizers(rs, k, w, blocks, block_q) -> None:
+    """The blocks' query minimizers into `mapper.minimizer_cache(rs)`, in
+    `_minimizers_batch`'s layout, assembled on the device and copied to
+    the host in one transfer a column."""
+    from hinge_tpu_torch.overlap import mapper as _mapper
+
+    cache = _mapper.minimizer_cache(rs)
+    if (k, w) in cache:
+        return
+    pos = torch.cat([q[1] for q in block_q]).to(torch.int32).cpu().numpy()
+    hsh = (torch.cat([q[0] for q in block_q]) ^ _SIGN).cpu().numpy()
+    counts = torch.cat([torch.bincount(q[2], minlength=2 * (r1 - b0))
+                        for (b0, r1, _), q in zip(blocks, block_q)])
+    cache[(k, w)] = (pos, hsh.view(np.uint64), counts.cpu().numpy())
 
 
 class _PhaseClock:
@@ -463,15 +501,20 @@ def overlap_base_records(
     *,
     device,
     stats: Optional[dict] = None,
+    cache_minimizers: bool = False,
 ) -> Optional[OverlapStore]:
     """All-vs-all half-pair base records computed on `device`; None when a
     key-packing gate fails (see join_gate).  `stats`, when given, gathers
     per-phase seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised),
-    blocks and hits."""
+    blocks and hits.  With `cache_minimizers`, the query minimizers are
+    also copied to the host into `mapper.minimizer_cache(rs)`, as the C
+    join leaves them there for the map stage."""
     from hinge_tpu_torch.overlap import mapper as _mapper
 
     if join_gate(rs, k, w, band_width) is not None:
         return None
+    if rs.n_reads == 0:
+        return _mapper._empty(tspace)
     dev = torch.device(device)
     lens = rs.length.astype(np.int64)
     clock = _PhaseClock(stats, dev)
@@ -496,11 +539,15 @@ def overlap_base_records(
         block_q.append(q)
         idx_parts.append(ix)
     del d_packed, d_off
+    if cache_minimizers:
+        _cache_minimizers(rs, k, w, blocks, block_q)
     clock.lap("minimizer")
     sh, stid, spos, entry_valid = build_index(
         *(torch.cat(c) for c in zip(*idx_parts)), max_bucket)
     del idx_parts
     clock.lap("index")
+    if sh.shape[0] == 0:  # every read shorter than k: no seed can hit
+        return _mapper._empty(tspace)
 
     stores: List[OverlapStore] = []
     n_hits = 0

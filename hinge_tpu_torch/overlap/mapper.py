@@ -3,12 +3,14 @@ rewritten to hinge_tpu_torch, and the device join's branch moved from
 `map_reads_to_targets` into `overlap_reads`, where it runs the port's
 device join (overlap/device_join.py) on the run's device.
 
-With HINGE_DEVICE_JOIN=1, `overlap_reads` takes its half-pair base records
-from the device join; without it, from the native C join
-(`map_reads_to_targets(half_pairs=True)`).  Either way the records are then
-deduplicated and mirrored on the host (`dedup_and_mirror`).  There is no
-fallback: with the switch on, an input that the device join's gates refuse
-raises ValueError instead of taking the C join.  `map_reads_to_targets`
+`overlap_reads` takes its half-pair base records from the device join or
+from the native C join (`map_reads_to_targets(half_pairs=True)`), as
+`use_device_join` decides: the device join on a CUDA device and the C join
+on the CPU, unless HINGE_DEVICE_JOIN=1 (the device join) or =0 (the C join)
+says otherwise.  Either way the records are then deduplicated and mirrored
+on the host (`dedup_and_mirror`).  There is no fallback: an input that the
+device join's gates refuse raises ValueError, naming the gate and
+HINGE_DEVICE_JOIN=0, instead of taking the C join.  `map_reads_to_targets`
 always runs the C join, whatever the switch says.
 
 Minimizer-based read-to-reference mapper — fully vectorized.
@@ -39,6 +41,7 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from hinge_tpu_torch.data.overlaps import INT, OverlapStore, ReadStore, revcomp_codes
 
@@ -272,13 +275,7 @@ def map_reads_to_targets(
     # and every block outlive later pool reuse
     pre = None  # (qp_all, qh_all, counts_all)
     if rs.bases is not None:
-        cache = getattr(rs, "_minimizer_cache", None)
-        if cache is None:
-            cache = {}
-            try:
-                rs._minimizer_cache = cache
-            except Exception:
-                pass
+        cache = minimizer_cache(rs)
         pre = cache.get((k, w))
         if pre is None:
             got = _minimizers_batch(rs.bases, rs.bases_off, k, w,
@@ -332,6 +329,21 @@ def map_reads_to_targets(
 
         fill_window_diffs(out, targets, rs)
     return out
+
+
+def minimizer_cache(rs: ReadStore) -> dict:
+    """The whole-run query minimizers cached on `rs`, by (k, w): (pos
+    int32, hash uint64, count a stream int64), the streams forward then
+    reverse complement a read (`_minimizers_batch`'s layout).  Filled by
+    the join, C or device; read by map_reads_to_targets."""
+    cache = getattr(rs, "_minimizer_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            rs._minimizer_cache = cache
+        except Exception:
+            pass
+    return cache
 
 
 def _concat(stores: List[OverlapStore], tspace: int) -> OverlapStore:
@@ -801,6 +813,17 @@ def _empty(tspace):
     )
 
 
+def use_device_join(device) -> bool:
+    """Whether overlap_reads runs the device join on `device`:
+    HINGE_DEVICE_JOIN=1 yes, =0 no (the C join); unset, on CUDA only."""
+    mode = os.environ.get("HINGE_DEVICE_JOIN", "")
+    if mode not in ("", "0", "1"):
+        raise ValueError(f"HINGE_DEVICE_JOIN={mode!r}: expected 0 or 1")
+    if mode:
+        return mode == "1"
+    return torch.device(device).type == "cuda"
+
+
 def overlap_reads(
     rs: ReadStore,
     k: int = 15,
@@ -820,10 +843,10 @@ def overlap_reads(
     draft stage matches records by summed length, draft.cpp:163-177, so the
     two directions must agree byte-for-byte); trivial self matches (same
     read, forward strand, near-zero diagonal) are dropped.  The half-pair
-    base records come from the C join, or from the device join on `device`
-    with HINGE_DEVICE_JOIN=1.
+    base records come from the device join on `device` or from the C join,
+    as `use_device_join(device)` says.
     """
-    if os.environ.get("HINGE_DEVICE_JOIN", "") != "1":
+    if not use_device_join(device):
         targets = [rs.get_bases(i) for i in range(rs.n_reads)]
         ov = map_reads_to_targets(
             targets, rs, k=k, w=w, min_span=min_span, min_hits=min_hits,
@@ -834,11 +857,12 @@ def overlap_reads(
 
     gate = DJ.join_gate(rs, k, w, band_width)
     if gate is not None:
-        raise ValueError(f"HINGE_DEVICE_JOIN=1: the device join cannot run "
-                         f"on these reads ({gate})")
+        raise ValueError(f"the device join cannot run on these reads "
+                         f"({gate}); HINGE_DEVICE_JOIN=0 runs the C join")
     ov = DJ.overlap_base_records(
         rs, k=k, w=w, min_span=min_span, min_hits=min_hits,
-        band_width=band_width, tspace=tspace, device=device)
+        band_width=band_width, tspace=tspace, device=device,
+        cache_minimizers=True)
     return dedup_and_mirror(ov, band_width, tspace)
 
 

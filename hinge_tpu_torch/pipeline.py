@@ -95,7 +95,8 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
         parts = [read_paf(paf)]
     else:
         # no overlapper output provided: run the built-in all-vs-all
-        # overlapper (the C join, or the device join with HINGE_DEVICE_JOIN=1)
+        # overlapper (the device join on CUDA, the C join on the CPU;
+        # mapper.use_device_join)
         from hinge_tpu_torch.overlap.mapper import overlap_reads
 
         t_ovl = time.time()

@@ -11,9 +11,11 @@ over {A,C,G,T,-} plus a single-insertion track (:162-269):
 * insertion emitted when insertion_score > cov/2 (argmax over A,C,G,T),
 * deletion when '-' wins the column.
 
-The vote accumulations are scatter-adds over (position, base), done by the
-native C vote (numpy without the toolchain); HINGE_DEVICE_VOTE=1 runs them
-as torch ops on the run's device (`ops/consensus_vote.py`).
+The vote accumulations are scatter-adds over (position, base), done as
+torch ops on the run's device (`ops/consensus_vote.py`) when it is a CUDA
+device, else by the native C vote (numpy without the toolchain);
+HINGE_DEVICE_VOTE=1 / 0 / np forces the device vote / the native vote /
+numpy (`vote_route`).  All three are integer-exact.
 
 Port of `hinge_tpu/stages/consensus.py`, host code carried over: that
 module imports `ops.batch_align` (jax) for a trace-realignment branch its
@@ -23,9 +25,11 @@ drops that branch.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore, revcomp_codes
@@ -195,20 +199,29 @@ def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
             ins_score.astype(np.int32), ins_scores.reshape(alen, 5).astype(np.int32))
 
 
-def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen, device):
-    """Native C single-pass vote when the toolchain is available, else
-    numpy; HINGE_DEVICE_VOTE=1 runs the vote on `device`
-    (ops/consensus_vote.py), HINGE_DEVICE_VOTE=np forces numpy.  All three
-    are integer-exact."""
-    import os
+def vote_route(device) -> str:
+    """Which vote the consensus stage runs on `device`: "device" (torch ops
+    on it), "native" (the C vote; numpy without the toolchain) or "np".
+    HINGE_DEVICE_VOTE=1 / 0 / np picks one; unset, the device vote on CUDA
+    and the native vote on the CPU."""
+    mode = os.environ.get("HINGE_DEVICE_VOTE", "")
+    routes = {"1": "device", "0": "native", "np": "np"}
+    if mode in routes:
+        return routes[mode]
+    if mode:
+        raise ValueError(f"HINGE_DEVICE_VOTE={mode!r}: expected 0, 1 or np")
+    return "device" if torch.device(device).type == "cuda" else "native"
 
-    mode = os.environ.get("HINGE_DEVICE_VOTE", "auto")
-    if mode == "1":
+
+def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen, device):
+    """The vote tallies by the route `vote_route(device)` picks."""
+    route = vote_route(device)
+    if route == "device":
         from hinge_tpu_torch.ops.consensus_vote import vote_tallies_device
 
         return vote_tallies_device(flat_a, flat_b, seg_len, pos0, alen,
                                    device=device)
-    if mode != "np":
+    if route == "native":
         native = _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen)
         if native is not None:
             return native
@@ -340,7 +353,7 @@ def run_consensus(
         # pooled column vote, fully segment-vectorized in bounded chunks:
         # (pos, base) pairs of every read at once, then ONE bincount per
         # tally per chunk (the per-read Python loop was 54% of consensus
-        # wall in the host profile).  HINGE_DEVICE_VOTE=1 runs it as device
+        # wall in the host profile).  On CUDA it runs as device
         # scatter-adds (ops/consensus_vote.py, bit-identical).
         scores, cov, ins_score, ins_scores = _tallies_dispatch(
             flat_a, flat_b, seg_len, pos0, alen, device)

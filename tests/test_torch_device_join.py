@@ -83,20 +83,25 @@ def _short_reads():
 
 
 def test_gate_returns_none():
-    """Reads shorter than k + w have no windows: the gate refuses them,
-    as hinge_tpu's does."""
+    """A gate refuses w > k in both packages (None).  Reads shorter than
+    k + w, which hinge_tpu's gate refuses, pass the port's and give the C
+    join's records (none for reads shorter than k)."""
     rs = _short_reads()
     assert JDJ.overlap_base_records(rs) is None
-    assert DJ.overlap_base_records(_port(rs), device="cpu") is None
-    assert "k + w" in DJ.join_gate(_port(rs), 15, 12, 500)
+    assert DJ.join_gate(_port(rs), 15, 12, 500) is None
+    _assert_stores_equal(DJ.overlap_base_records(_port(rs), device="cpu"),
+                         _c_base_records(rs))
+    assert JDJ.overlap_base_records(rs, w=16) is None
+    assert DJ.overlap_base_records(_port(rs), w=16, device="cpu") is None
+    assert "w = 16 > k = 15" in DJ.join_gate(_port(rs), 15, 16, 500)
 
 
 def test_switch_raises_on_gated_input(monkeypatch):
-    """With HINGE_DEVICE_JOIN=1 a gated input raises, naming the gate; it
-    never takes the C join."""
+    """With HINGE_DEVICE_JOIN=1 a gated input raises, naming the gate and
+    the switch that runs the C join; it never takes the C join."""
     monkeypatch.setenv("HINGE_DEVICE_JOIN", "1")
-    with pytest.raises(ValueError, match="k \\+ w"):
-        TM.overlap_reads(_port(_short_reads()), device="cpu")
+    with pytest.raises(ValueError, match="w = 16 > k = 15.*HINGE_DEVICE_JOIN=0"):
+        TM.overlap_reads(_port(_short_reads()), w=16, device="cpu")
 
 
 def test_overlap_reads_device_matches_c(sim_mid, monkeypatch):

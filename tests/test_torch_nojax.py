@@ -208,9 +208,9 @@ def test_unported_switches_raise(shards, tmp_path, monkeypatch):
 
 def test_bench_entry_points_import_without_jax(tmp_path):
     """hinge_tpu_torch.bench and every one of its modules (the twins of
-    the repo-root JAX scripts) import in a fresh interpreter without
-    loading jax or hinge_tpu, and each names its source script in its
-    first docstring line."""
+    the repo-root JAX scripts, and the port's own defaults A/B) import in
+    a fresh interpreter without loading jax or hinge_tpu, and each twin
+    names its source script in its first docstring line."""
     code = """
 import importlib, pkgutil, sys
 import hinge_tpu_torch.bench as pkg
@@ -219,7 +219,9 @@ twins = {"bench": "bench.py", "bench_window_dp": "bench_window_dp.py",
          "bench_e2e": "bench_tpu_e2e.py", "bench_draft_ab": "bench_draft_ab.py",
          "profile_mapcons": "profile_mapcons.py",
          "bench_multihost": "bench_multihost.py"}
-assert set(names) == {pkg.__name__ + "." + n for n in [*twins, "__main__"]}, names
+own = ["bench_defaults_ab"]
+assert set(names) == {pkg.__name__ + "." + n
+                      for n in [*twins, *own, "__main__"]}, names
 for name in names:
     mod = importlib.import_module(name)
     short = name.rsplit(".", 1)[1]
