@@ -775,21 +775,10 @@ def phase_real_size(tmp):
             (windows.qs, windows.ts))
 
 
-def _assert_stores_equal(a, b):
-    """tests/test_device_join.py's store equality."""
-    if a.n != b.n:
-        raise AssertionError(f"record count {a.n} != {b.n}")
-    for f in ("a_id", "b_id", "a_len", "b_len", "a_start", "a_end",
-              "b_start", "b_end", "rc", "tlen", "trace_off", "trace"):
-        if not np.array_equal(getattr(a, f), getattr(b, f)):
-            raise AssertionError(f"device join differs from the C join: {f}")
-    if a.tspace != b.tspace:
-        raise AssertionError("tspace differs")
-
-
 def phase_device_join(rs):
     """The port's device join vs the C join on phase 5's reads; two runs
     of each, the C runs each computing their own minimizers."""
+    from hinge_tpu_torch.bench import assert_stores_equal
     from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
     from hinge_tpu_torch.overlap import device_join as DJ
 
@@ -810,10 +799,10 @@ def phase_device_join(rs):
         torch.cuda.synchronize()
         dev_walls.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
-        _assert_stores_equal(got, ref)
+        assert_stores_equal(got, ref)
     # a third device run, synchronised at every phase boundary
     got = DJ.overlap_base_records(rs, device="cuda", stats=stats)
-    _assert_stores_equal(got, ref)
+    assert_stores_equal(got, ref)
     log(f"[join] {ref.n} half-pair records, equal to the C join on every "
         f"column and trace byte ({len(ref.trace)} trace values)")
     log(f"[join] C join wall {c_walls[0]:.3f}s, {c_walls[1]:.3f}s; device "
@@ -866,6 +855,7 @@ def with_short_reads(rs, seed=1):
 def phase_join_short_reads(rs):
     """Phase 5's reads with reads shorter than k + w among them: the device
     join on cuda must equal the C join record for record."""
+    from hinge_tpu_torch.bench import assert_stores_equal
     from hinge_tpu_torch.overlap import device_join as DJ
     from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
 
@@ -881,24 +871,22 @@ def phase_join_short_reads(rs):
     dev_wall = time.perf_counter() - t0
     if got is None:
         raise AssertionError("the device join refused reads shorter than k + w")
-    _assert_stores_equal(got, ref)
+    assert_stores_equal(got, ref)
     log(f"[join] {srs.n_reads} reads, {n_short} of them shorter than k + w "
         f"= 27 bases: {ref.n} records equal to the C join's (device join "
         f"{dev_wall:.3f}s, C join {c_wall:.3f}s)")
 
 
 def phase_join_gate():
-    """A read set past the device join's MAX_TID gate: with the switch
+    """Read sets past the device join's MAX_TID gate and past its memory
+    gate (200,000 reads of 50 kb, more than the card holds at the join's
+    bytes a base; join_gate reads only their lengths): with the switch
     unset, overlap_reads on cuda must raise, naming the gate and
     HINGE_DEVICE_JOIN=0, and never run the C join."""
     from hinge_tpu_torch.data.overlaps import ReadStore
     from hinge_tpu_torch.overlap import device_join as DJ
     from hinge_tpu_torch.overlap import mapper as M
 
-    lens = np.full(DJ.MAX_TID, 30, np.int32)
-    off = np.arange(DJ.MAX_TID + 1, dtype=np.int64) * 30
-    rs = ReadStore(length=lens, bases_off=off,
-                   bases=np.zeros(int(off[-1]), np.uint8))
     os.environ.pop("HINGE_DEVICE_JOIN", None)
     real = M.map_reads_to_targets
 
@@ -907,14 +895,24 @@ def phase_join_gate():
 
     M.map_reads_to_targets = no_c_join
     try:
-        M.overlap_reads(rs, device="cuda")
-    except ValueError as e:
-        if "MAX_TID" not in str(e) or "HINGE_DEVICE_JOIN=0" not in str(e):
-            raise AssertionError(f"the gate's error does not name the gate "
-                                 f"and HINGE_DEVICE_JOIN=0: {e}")
-        log(f"[join] {DJ.MAX_TID} reads under the default: {e}")
-    else:
-        raise AssertionError("a read set past MAX_TID ran under the default")
+        for n, length, name in ((DJ.MAX_TID, 30, "MAX_TID"),
+                                (200_000, 50_000, "bytes of device memory")):
+            lens = np.full(n, length, np.int32)
+            off = np.arange(n + 1, dtype=np.int64) * length
+            bases = np.zeros(int(off[-1]) if length < 100 else 1, np.uint8)
+            rs = ReadStore(length=lens, bases_off=off, bases=bases)
+            try:
+                M.overlap_reads(rs, device="cuda")
+            except ValueError as e:
+                if name not in str(e) or "HINGE_DEVICE_JOIN=0" not in str(e):
+                    raise AssertionError(f"the gate's error does not name "
+                                         f"the gate and HINGE_DEVICE_JOIN=0: "
+                                         f"{e}")
+                log(f"[join] {n} reads of {length} bases under the default: "
+                    f"{e}")
+            else:
+                raise AssertionError(f"{n} reads of {length} bases ran under "
+                                     f"the default")
     finally:
         M.map_reads_to_targets = real
 

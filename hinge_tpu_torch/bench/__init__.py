@@ -33,6 +33,7 @@ import os
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 #: the repository root (the package's parent directory)
@@ -46,6 +47,23 @@ RECORD = os.path.join(ROOT, "docs", "bench_recorded_torch.json")
 #: reads every draft ladder window is an identical pair, which the draft
 #: short-circuits, so no aligner runs
 READ_ERRORS = dict(sub_rate=0.01, ins_rate=0.005, del_rate=0.005)
+
+
+#: the columns two overlap stores of the same records agree on
+STORE_COLUMNS = ("a_id", "b_id", "a_len", "b_len", "a_start", "a_end",
+                 "b_start", "b_end", "rc", "tlen", "trace_off", "trace")
+
+
+def assert_stores_equal(a, b) -> None:
+    """Raise unless overlap stores `a` and `b` hold the same records: the
+    count, tspace, every column and every trace value."""
+    if a.n != b.n:
+        raise AssertionError(f"record count {a.n} != {b.n}")
+    for f in STORE_COLUMNS:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"the records differ in {f}")
+    if a.tspace != b.tspace:
+        raise AssertionError(f"tspace {a.tspace} != {b.tspace}")
 
 
 def card(dev: torch.device) -> dict:

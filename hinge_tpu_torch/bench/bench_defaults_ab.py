@@ -33,17 +33,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
-import importlib
 import json
 import os
 import tempfile
 import time
 
-import numpy as np
 import torch
 
-from hinge_tpu_torch.bench import READ_ERRORS, card, record, sync
-from hinge_tpu_torch.bench.bench_e2e import COUNTED, simulate_reads
+from hinge_tpu_torch.bench import (READ_ERRORS, assert_stores_equal, card,
+                                   record, sync)
+from hinge_tpu_torch.bench.bench_e2e import (assemble_fasta, simulate_reads,
+                                             write_reads)
 from hinge_tpu_torch.device import resolve_device
 
 SWITCHES = ("HINGE_DEVICE_JOIN", "HINGE_DEVICE_VOTE")
@@ -52,9 +52,6 @@ ARMS = {"c": {"HINGE_DEVICE_JOIN": "0", "HINGE_DEVICE_VOTE": "0"},
 ORDER = ("c", "device", "device", "c")
 #: the genome of the warm-up runs
 WARMUP_LEN = 300_000
-#: the equality of the records of two joins (chip_smoke phase 6's check)
-COLUMNS = ("a_id", "b_id", "a_len", "b_len", "a_start", "a_end", "b_start",
-           "b_end", "rc", "tlen", "trace_off", "trace")
 
 
 @contextlib.contextmanager
@@ -71,20 +68,6 @@ def arm_switches(arm):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
-def join_stats(stats: dict):
-    """Every device join run inside gathers its per-phase stats in
-    `stats`."""
-    from hinge_tpu_torch.overlap import device_join as DJ
-
-    real = DJ.overlap_base_records
-    DJ.overlap_base_records = lambda *a, **kw: real(*a, stats=stats, **kw)
-    try:
-        yield
-    finally:
-        DJ.overlap_base_records = real
-
-
 def _sha256(path):
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
@@ -92,36 +75,12 @@ def _sha256(path):
 
 def run_arm(arm, fasta, workdir, genome_len, *, device) -> dict:
     """One assemble() from `fasta` under `arm`'s switches; its entry."""
-    from hinge_tpu_torch.pipeline import assemble
-    from hinge_tpu_torch.utils.log import timings
-
-    dev = resolve_device(device)
-    counters = [(stage, importlib.import_module(mod).launches)
-                for stage, mod in COUNTED]
-    for _, c in counters:
-        for k in c:
-            c[k] = 0
-    before = timings()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     stats = {}
-    with arm_switches(arm), join_stats(stats):
-        t0 = time.perf_counter()
-        res = assemble(fasta=fasta, workdir=workdir, device=dev,
-                       log=lambda *a: None)
-        sync(dev)
-        wall = time.perf_counter() - t0
-    longest = max((len(s) for _, s in res["contigs"]), default=0)
+    with arm_switches(arm):
+        got = assemble_fasta(fasta, workdir, genome_len, device=device,
+                             join_stats=stats)
     return {
-        "arm": arm, "wall_s": wall,
-        "stages": {k: v - before.get(k, 0.0) for k, v in timings().items()
-                   if v - before.get(k, 0.0) > 0},
-        "device_join": stats or None,
-        "launches": {stage: dict(c) for stage, c in counters},
-        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
-        "n_contigs": len(res["contigs"]),
-        "longest_contig_frac": longest / genome_len,
+        "arm": arm, **got, "device_join": stats or None,
         "draft_sha256": _sha256(os.path.join(workdir, "asm.draft.fasta")),
         "consensus_sha256": _sha256(
             os.path.join(workdir, "asm.consensus.fasta")),
@@ -130,8 +89,8 @@ def run_arm(arm, fasta, workdir, genome_len, *, device) -> dict:
 
 def check_join(rs, *, device) -> dict:
     """The C join and the device join on `rs`: equal half-pair records
-    (raises where a column differs), both walls, the device join's
-    per-phase stats and peak device memory."""
+    (raises where they differ), both walls, the device join's per-phase
+    stats and peak device memory, and the read bases."""
     from hinge_tpu_torch.overlap import device_join as DJ
     from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
 
@@ -150,27 +109,16 @@ def check_join(rs, *, device) -> dict:
     dev_s = time.perf_counter() - t0
     if got is None:
         raise AssertionError(f"the device join's gate refused the reads: "
-                             f"{DJ.join_gate(rs, 15, 12, 500)}")
-    if got.n != ref.n:
-        raise AssertionError(f"device join: {got.n} records, C join {ref.n}")
-    for f in COLUMNS:
-        if not np.array_equal(getattr(got, f), getattr(ref, f)):
-            raise AssertionError(f"the device join differs from the C join "
-                                 f"in {f}")
+                             f"{DJ.join_gate(rs, 15, 12, 500, device=dev)}")
+    assert_stores_equal(got, ref)
     return {"records": ref.n, "trace_values": len(ref.trace), "equal": True,
             "c_join_s": c_s, "device_join_s": dev_s, "device_join": stats,
+            "read_bases": int(rs.length.sum()),
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None)}
 
 
-def _write_reads(path, rs):
-    from hinge_tpu_torch.io.fasta import write_fasta
-
-    write_fasta(path, ((rs.names[i], rs.get_seq(i))
-                       for i in range(rs.n_reads)))
-
-
-def run(genome_len, coverage, *, device, errors=False, order=ORDER,
+def run(genome_len, coverage, *, device, errors=False,
         log=lambda *a: None) -> dict:
     """The alternating runs and the join check; the entry.  Raises when
     two runs' outputs differ."""
@@ -178,17 +126,17 @@ def run(genome_len, coverage, *, device, errors=False, order=ORDER,
     err = READ_ERRORS if errors else {}
     with tempfile.TemporaryDirectory() as tmp:
         warm = os.path.join(tmp, "warm.fasta")
-        _write_reads(warm, simulate_reads(WARMUP_LEN, coverage, **err)[1])
-        for arm in dict.fromkeys(order):
+        write_reads(warm, simulate_reads(WARMUP_LEN, coverage, **err)[1])
+        for arm in ARMS:
             run_arm(arm, warm, os.path.join(tmp, f"warm_{arm}"), WARMUP_LEN,
                     device=dev)
         t0 = time.perf_counter()
         _, rs = simulate_reads(genome_len, coverage, **err)
         fasta = os.path.join(tmp, "reads.fasta")
-        _write_reads(fasta, rs)
+        write_reads(fasta, rs)
         setup = time.perf_counter() - t0
         runs = []
-        for i, arm in enumerate(order):
+        for i, arm in enumerate(ORDER):
             runs.append(run_arm(arm, fasta, os.path.join(tmp, f"run{i}"),
                                 genome_len, device=dev))
             log(json.dumps({"run": i, **runs[-1]}))
@@ -206,8 +154,7 @@ def run(genome_len, coverage, *, device, errors=False, order=ORDER,
         "workload": {"genome_mb": round(genome_len / 1e6, 2),
                      "coverage_x": coverage, "n_reads": rs.n_reads,
                      "seed": 0, "input": "fasta", **err},
-        "arms": {a: ARMS[a] for a in dict.fromkeys(order)},
-        "setup_s": setup, "order": list(order), "runs": runs,
+        "arms": ARMS, "setup_s": setup, "order": list(ORDER), "runs": runs,
         "outputs_equal": True, "join": join,
     }
 

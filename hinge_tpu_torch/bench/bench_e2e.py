@@ -67,58 +67,42 @@ def busy_seconds(trace_json: str) -> float:
     return busy / 1e6
 
 
-def run(genome_len, coverage, *, device, profile=False) -> dict:
-    """Assemble the simulated reads from FASTA on `device` (its log lines
-    go to the pipeline's logger, stdout and <workdir>/log); the entry."""
+def assemble_fasta(fasta, workdir, genome_len, *, device, trace_dir="",
+                   join_stats=None) -> dict:
+    """One assemble() from `fasta` into `workdir` on `device`, with the
+    launch counters zeroed and the peak memory reset before it (its log
+    lines go to the pipeline's logger); the wall, the stage walls, the
+    outputs' measures and the launches."""
     import importlib
 
-    from hinge_tpu_torch.io.fasta import write_fasta
     from hinge_tpu_torch.pipeline import assemble
     from hinge_tpu_torch.utils.log import timings
 
     dev = resolve_device(device)
     counters = [(stage, importlib.import_module(mod).launches)
                 for stage, mod in COUNTED]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        _, rs = simulate_reads(genome_len, coverage)
-        fasta = os.path.join(tmp, "reads.fasta")
-        write_fasta(fasta, ((rs.names[i], rs.get_seq(i))
-                            for i in range(rs.n_reads)))
-        n_reads = rs.n_reads
-        del rs
-        setup = time.perf_counter() - t0
-        for _, c in counters:
-            for k in c:
-                c[k] = 0
-        before = timings()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        trace = os.path.join(tmp, "trace") if profile else ""
-        t0 = time.perf_counter()
-        res = assemble(fasta=fasta, workdir=os.path.join(tmp, "asm"),
-                       device=dev, log=lambda *a: None,
-                       trace_dir=trace)
-        sync(dev)
-        wall = time.perf_counter() - t0
-        busy = busy_seconds(os.path.join(trace, "trace.json")) if profile else None
+    for _, c in counters:
+        for k in c:
+            c[k] = 0
+    before = timings()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = assemble(fasta=fasta, workdir=workdir, device=dev,
+                   log=lambda *a: None, trace_dir=trace_dir,
+                   join_stats=join_stats)
+    sync(dev)
+    wall = time.perf_counter() - t0
     longest = max((len(s) for _, s in res["contigs"]), default=0)
-    stages = {k: round(v - before.get(k, 0.0), 3)
-              for k, v in timings().items() if v - before.get(k, 0.0) > 0}
     launches = {}
     for stage, c in counters:
         for k, v in c.items():
             if v:
                 launches.setdefault(stage, {})[k] = v
-    entry = {
-        "kind": "e2e_assemble",
-        **card(dev),
-        "workload": {"genome_mb": round(genome_len / 1e6, 2),
-                     "coverage_x": coverage, "n_reads": n_reads,
-                     "seed": 0, "input": "fasta"},
-        "setup_s": round(setup, 3),
+    return {
         "wall_s": round(wall, 3),
-        "stages": stages,
+        "stages": {k: round(v - before.get(k, 0.0), 3)
+                   for k, v in timings().items() if v - before.get(k, 0.0) > 0},
         "n_contigs": len(res["contigs"]),
         "longest_contig_frac": round(longest / genome_len, 4),
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
@@ -126,10 +110,44 @@ def run(genome_len, coverage, *, device, profile=False) -> dict:
         "device_stages": sorted(launches),
         "launches": launches,
     }
+
+
+def write_reads(path, rs) -> None:
+    """`rs`'s reads as FASTA."""
+    from hinge_tpu_torch.io.fasta import write_fasta
+
+    write_fasta(path, ((rs.names[i], rs.get_seq(i))
+                       for i in range(rs.n_reads)))
+
+
+def run(genome_len, coverage, *, device, profile=False) -> dict:
+    """Assemble the simulated reads from FASTA on `device`; the entry."""
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, rs = simulate_reads(genome_len, coverage)
+        fasta = os.path.join(tmp, "reads.fasta")
+        write_reads(fasta, rs)
+        n_reads = rs.n_reads
+        del rs
+        setup = time.perf_counter() - t0
+        trace = os.path.join(tmp, "trace") if profile else ""
+        got = assemble_fasta(fasta, os.path.join(tmp, "asm"), genome_len,
+                             device=dev, trace_dir=trace)
+        busy = busy_seconds(os.path.join(trace, "trace.json")) if profile else None
+    entry = {
+        "kind": "e2e_assemble",
+        **card(dev),
+        "workload": {"genome_mb": round(genome_len / 1e6, 2),
+                     "coverage_x": coverage, "n_reads": n_reads,
+                     "seed": 0, "input": "fasta"},
+        "setup_s": round(setup, 3),
+        **got,
+    }
     if profile:
         entry["traced"] = True
         entry["device_busy_s"] = round(busy, 6)
-        entry["device_busy_share"] = busy / wall
+        entry["device_busy_share"] = busy / got["wall_s"]
     return entry
 
 

@@ -33,8 +33,8 @@ What differs from hinge_tpu, and why it gives the same records:
     the C join's one minimizer at its first minimum.  hinge_tpu gates
     them off.
 
-The key-packing gates of hinge_tpu stay (`join_gate`): where one fails,
-overlap_base_records returns None.
+The key-packing gates of hinge_tpu stay (`join_gate`), beside one on the
+card's free memory: where one fails, overlap_base_records returns None.
 """
 
 from __future__ import annotations
@@ -51,6 +51,12 @@ from hinge_tpu_torch.device import to_device
 # copied from hinge_tpu/overlap/device_join.py (:61-62, :666-674)
 BANDBITS = 12          # band_rel field width in the 32-bit group key
 MAX_TID = 1 << 18      # key packs tid into 31-(1+BANDBITS) = 18 bits
+#: the join's peak device memory, bytes a read base and fixed: a margin
+#: over the peaks that `bench_defaults_ab`'s join check measured on an
+#: H100, 2,061,248,000 bytes at 138,000,923 read bases and 8,699,400,192
+#: at 690,004,897 (~12 bytes a base); join_gate refuses an input above it
+JOIN_BYTES_PER_BASE = 16
+JOIN_BYTES_FIXED = 1 << 30
 
 _I64 = torch.int64
 _SIGN = -(1 << 63)  # flips int64 order into uint64 order
@@ -431,10 +437,12 @@ def emit_traces(f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb,
 # ---------------------------------------------------------------------------
 
 
-def join_gate(rs: ReadStore, k: int, w: int, band_width: int) -> Optional[str]:
+def join_gate(rs: ReadStore, k: int, w: int, band_width: int,
+              device=None) -> Optional[str]:
     """The key-packing gates of hinge_tpu's device join (its :693-701),
-    less its short-read gate: the reason the join cannot run on `rs`, or
-    None when it can.  Reads shorter than k + w run (see minimizers)."""
+    less its short-read gate, and on a CUDA `device` the card's free
+    memory: the reason the join cannot run on `rs`, or None when it can.
+    Reads shorter than k + w run (see minimizers)."""
     if rs.bases is None:
         return "no read bases"
     if rs.n_reads == 0:
@@ -448,23 +456,21 @@ def join_gate(rs: ReadStore, k: int, w: int, band_width: int) -> Optional[str]:
         return f"w = {w} > k = {k}"
     if (2 * int(lens.max())) // band_width + 2 >= (1 << BANDBITS):
         return f"band_rel of a {int(lens.max())}-base read overflows {BANDBITS} bits"
+    if device is not None and torch.device(device).type == "cuda":
+        need = JOIN_BYTES_FIXED + JOIN_BYTES_PER_BASE * int(lens.sum())
+        free = _free_bytes(torch.device(device))
+        if need > free:
+            return (f"{int(lens.sum())} read bases need ~{need} bytes of "
+                    f"device memory, {free} free")
     return None
 
 
-def _cache_minimizers(rs, k, w, blocks, block_q) -> None:
-    """The blocks' query minimizers into `mapper.minimizer_cache(rs)`, in
-    `_minimizers_batch`'s layout, assembled on the device and copied to
-    the host in one transfer a column."""
-    from hinge_tpu_torch.overlap import mapper as _mapper
-
-    cache = _mapper.minimizer_cache(rs)
-    if (k, w) in cache:
-        return
-    pos = torch.cat([q[1] for q in block_q]).to(torch.int32).cpu().numpy()
-    hsh = (torch.cat([q[0] for q in block_q]) ^ _SIGN).cpu().numpy()
-    counts = torch.cat([torch.bincount(q[2], minlength=2 * (r1 - b0))
-                        for (b0, r1, _), q in zip(blocks, block_q)])
-    cache[(k, w)] = (pos, hsh.view(np.uint64), counts.cpu().numpy())
+def _free_bytes(dev: torch.device) -> int:
+    """Device memory the join can take: the card's free bytes and the
+    caching allocator's reserved but unused ones."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    return (free + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
 
 
 class _PhaseClock:
@@ -501,17 +507,17 @@ def overlap_base_records(
     *,
     device,
     stats: Optional[dict] = None,
-    cache_minimizers: bool = False,
 ) -> Optional[OverlapStore]:
     """All-vs-all half-pair base records computed on `device`; None when a
-    key-packing gate fails (see join_gate).  `stats`, when given, gathers
-    per-phase seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised),
-    blocks and hits.  With `cache_minimizers`, the query minimizers are
-    also copied to the host into `mapper.minimizer_cache(rs)`, as the C
-    join leaves them there for the map stage."""
+    gate fails (see join_gate).  `stats`, when given, gathers per-phase
+    seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised), blocks
+    and hits.  The query minimizers wait on the host between the index
+    build and their block's join, so the device holds one block's at a
+    time, and stay there in `mapper.minimizer_cache(rs)` for the map
+    stage, as the C join leaves them."""
     from hinge_tpu_torch.overlap import mapper as _mapper
 
-    if join_gate(rs, k, w, band_width) is not None:
+    if join_gate(rs, k, w, band_width, device=device) is not None:
         return None
     if rs.n_reads == 0:
         return _mapper._empty(tspace)
@@ -533,27 +539,36 @@ def overlap_base_records(
     d_packed = to_device(_pack_codes(rs), dev)
     d_off = to_device(rs.bases_off.astype(np.int64), dev)
     d_lens = to_device(lens, dev)
-    block_q, idx_parts = [], []
+    host_q, idx_parts = [], []  # a block's (pos, hash, count a stream)
     for b0, r1, xl in blocks:
-        q, ix = minimizers(d_packed, d_off, d_lens, b0, r1, xl, k, w)
-        block_q.append(q)
+        (mh, mpos, msid), ix = minimizers(d_packed, d_off, d_lens, b0, r1,
+                                          xl, k, w)
+        host_q.append((mpos.to(torch.int32).cpu(), (mh ^ _SIGN).cpu(),
+                       torch.bincount(msid, minlength=2 * (r1 - b0)).cpu()))
         idx_parts.append(ix)
-    del d_packed, d_off
-    if cache_minimizers:
-        _cache_minimizers(rs, k, w, blocks, block_q)
+    del d_packed, d_off, mh, mpos, msid
+    q_pos, q_hsh, q_cnt = _mapper.cache_minimizers(
+        rs, k, w, *(torch.cat(c).numpy() for c in zip(*host_q)))
+    del host_q
+    q_off = np.concatenate([[0], np.cumsum(q_cnt)])
     clock.lap("minimizer")
-    sh, stid, spos, entry_valid = build_index(
-        *(torch.cat(c) for c in zip(*idx_parts)), max_bucket)
+    idx = [torch.cat(c) for c in zip(*idx_parts)]
     del idx_parts
+    sh, stid, spos, entry_valid = build_index(*idx, max_bucket)
+    del idx
     clock.lap("index")
     if sh.shape[0] == 0:  # every read shorter than k: no seed can hit
         return _mapper._empty(tspace)
 
     stores: List[OverlapStore] = []
     n_hits = 0
-    for bi_, (b0, r1, _) in enumerate(blocks):
-        mh, mpos, msid = block_q[bi_]
-        block_q[bi_] = None  # free this block's query arrays after use
+    for b0, r1, _ in blocks:
+        m0, m1 = q_off[2 * b0], q_off[2 * r1]
+        mh = to_device(q_hsh[m0:m1].view(np.int64), dev) ^ _SIGN
+        mpos = to_device(q_pos[m0:m1], dev).to(_I64)
+        msid = torch.repeat_interleave(
+            torch.arange(2 * (r1 - b0), device=dev),
+            to_device(q_cnt[2 * b0 : 2 * r1], dev), output_size=int(m1 - m0))
         band_off = torch.div(-(d_lens[b0:r1] - k) + _B30, band_width,
                              rounding_mode="floor")
         skey, q_s, t_s = join_hits(sh, stid, spos, entry_valid, mh, mpos,

@@ -281,9 +281,7 @@ def map_reads_to_targets(
             got = _minimizers_batch(rs.bases, rs.bases_off, k, w,
                                     both_strands=True)
             if got is not None:
-                qp_all, qh_all, counts_all = got
-                pre = (qp_all.copy(), qh_all.copy(), counts_all.copy())
-                cache[(k, w)] = pre
+                pre = cache_minimizers(rs, k, w, *(a.copy() for a in got))
     index = None
     if half_pairs and pre is not None:
         # all-vs-all: the forward streams double as the index input
@@ -335,7 +333,8 @@ def minimizer_cache(rs: ReadStore) -> dict:
     """The whole-run query minimizers cached on `rs`, by (k, w): (pos
     int32, hash uint64, count a stream int64), the streams forward then
     reverse complement a read (`_minimizers_batch`'s layout).  Filled by
-    the join, C or device; read by map_reads_to_targets."""
+    the join, C or device (cache_minimizers); read by
+    map_reads_to_targets."""
     cache = getattr(rs, "_minimizer_cache", None)
     if cache is None:
         cache = {}
@@ -344,6 +343,17 @@ def minimizer_cache(rs: ReadStore) -> dict:
         except Exception:
             pass
     return cache
+
+
+def cache_minimizers(rs: ReadStore, k: int, w: int, pos, hsh, counts):
+    """Store the whole-run query minimizers of `rs` in its cache and
+    return the entry: `pos` and `hsh` one a minimizer (`hsh` the hash's
+    64 bits in any 8-byte integer type), `counts` one a stream, the
+    streams forward then reverse complement a read, in read order."""
+    entry = (np.asarray(pos, np.int32), np.asarray(hsh).view(np.uint64),
+             np.asarray(counts, np.int64))
+    minimizer_cache(rs)[(k, w)] = entry
+    return entry
 
 
 def _concat(stores: List[OverlapStore], tspace: int) -> OverlapStore:
@@ -834,6 +844,7 @@ def overlap_reads(
     tspace: int = 100,
     *,
     device,
+    stats: Optional[dict] = None,
 ) -> OverlapStore:
     """All-vs-all read overlapping: the read set mapped against itself.
 
@@ -844,7 +855,8 @@ def overlap_reads(
     two directions must agree byte-for-byte); trivial self matches (same
     read, forward strand, near-zero diagonal) are dropped.  The half-pair
     base records come from the device join on `device` or from the C join,
-    as `use_device_join(device)` says.
+    as `use_device_join(device)` says; `stats`, when given, gathers the
+    device join's (overlap_base_records).
     """
     if not use_device_join(device):
         targets = [rs.get_bases(i) for i in range(rs.n_reads)]
@@ -855,14 +867,13 @@ def overlap_reads(
         return dedup_and_mirror(ov, band_width, tspace)
     from hinge_tpu_torch.overlap import device_join as DJ
 
-    gate = DJ.join_gate(rs, k, w, band_width)
+    gate = DJ.join_gate(rs, k, w, band_width, device=device)
     if gate is not None:
         raise ValueError(f"the device join cannot run on these reads "
                          f"({gate}); HINGE_DEVICE_JOIN=0 runs the C join")
     ov = DJ.overlap_base_records(
         rs, k=k, w=w, min_span=min_span, min_hits=min_hits,
-        band_width=band_width, tspace=tspace, device=device,
-        cache_minimizers=True)
+        band_width=band_width, tspace=tspace, device=device, stats=stats)
     return dedup_and_mirror(ov, band_width, tspace)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import os
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -33,12 +34,15 @@ def assemble(
     trace_dir: str = "",
     overlap_w: int = 12,
     device="cuda",
+    join_stats: Optional[dict] = None,
 ) -> dict:
     """Assemble reads (+ overlaps) into X_consensus.gfa on `device`.
 
     Arguments as for hinge_tpu.pipeline.assemble; trace_dir, when set,
-    wraps the run in a torch profiler trace written there.  Per-stage wall
-    times accumulate in hinge_tpu_torch.utils.log.timings()."""
+    wraps the run in a torch profiler trace written there; join_stats,
+    when given, gathers the device join's per-phase stats
+    (device_join.overlap_base_records).  Per-stage wall times accumulate
+    in hinge_tpu_torch.utils.log.timings()."""
     from hinge_tpu_torch.config import Config, nominal_config
     from hinge_tpu_torch.device import resolve_device
     from hinge_tpu_torch.utils.log import get_logger, stage_timer, torch_trace
@@ -61,12 +65,13 @@ def assemble(
     with torch_trace(trace_dir):
         return _assemble_body(
             fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg, log,
-            stage_timer, overlap_w, dev,
+            stage_timer, overlap_w, dev, join_stats,
         )
 
 
 def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
-                   log, stage_timer, overlap_w, device) -> dict:
+                   log, stage_timer, overlap_w, device,
+                   join_stats=None) -> dict:
     from hinge_tpu_torch.data.overlaps import str_to_codes
     from hinge_tpu_torch.io.dazz_db import read_db
     from hinge_tpu_torch.io.fasta import correct_head, read_fasta
@@ -101,7 +106,8 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
 
         t_ovl = time.time()
         with stage_timer("overlap"):
-            parts = [overlap_reads(rs, w=overlap_w, device=device)]
+            parts = [overlap_reads(rs, w=overlap_w, device=device,
+                                   stats=join_stats)]
         log(f"[assemble] built-in overlapper: {parts[0].n} overlaps "
             f"({time.time()-t_ovl:.1f}s)")
     has_db = bool(las) or not paf

@@ -155,7 +155,7 @@ def test_device_join_leaves_the_c_joins_minimizer_cache(via, short_set,
     if via == "blocks":
         stats = {}
         DJ.overlap_base_records(port_rs, device="cpu", block_bases=1 << 16,
-                                cache_minimizers=True, stats=stats)
+                                stats=stats)
         assert stats["blocks"] > 5
     else:
         TM.overlap_reads(port_rs, device="cpu")
@@ -193,24 +193,29 @@ def test_short_stream_minimizers_match_mapper():
                 assert len(pos) == (n >= K)
 
 
-@pytest.mark.parametrize("gate", ["reads", "length", "band", "stub"])
+@pytest.mark.parametrize("gate", ["reads", "length", "band", "memory",
+                                  "stub"])
 def test_capacity_gate_raises_under_default(gate, monkeypatch):
     """On CUDA with HINGE_DEVICE_JOIN unset, a read set past a capacity
     gate raises ValueError naming the gate and HINGE_DEVICE_JOIN=0; the
     C join never runs.  The gates are checked before any device work, so
-    a CUDA torch.device needs no card."""
+    a CUDA torch.device needs no card (the card's free memory is stubbed
+    to 1 MiB for the memory gate)."""
     monkeypatch.delenv("HINGE_DEVICE_JOIN", raising=False)
     lens = {"reads": [30] * DJ.MAX_TID, "length": [30, 1 << 24],
-            "band": [30, 1_100_000], "stub": [30, 40]}[gate]
+            "band": [30, 1_100_000], "memory": [30, 40],
+            "stub": [30, 40]}[gate]
     lens = np.array(lens, np.int32)
     off = np.zeros(len(lens) + 1, np.int64)
     np.cumsum(lens, out=off[1:])
     rs = carry.read_store_from_arrays(dict(
         length=lens, bases_off=off, bases=np.zeros(int(off[-1]), np.uint8)))
     names = {"reads": "MAX_TID", "length": "2\\^24", "band": "band_rel",
+             "memory": "bytes of device memory, 1048576 free",
              "stub": "stubbed gate"}
     if gate == "stub":
-        monkeypatch.setattr(DJ, "join_gate", lambda *a: "stubbed gate")
+        monkeypatch.setattr(DJ, "join_gate", lambda *a, **kw: "stubbed gate")
+    monkeypatch.setattr(DJ, "_free_bytes", lambda dev: 1 << 20)
 
     def no_c_join(*a, **kw):
         raise AssertionError("the C join ran")
@@ -220,6 +225,8 @@ def test_capacity_gate_raises_under_default(gate, monkeypatch):
         TM.overlap_reads(rs, device=CUDA)
     assert "HINGE_DEVICE_JOIN=0" in str(e.value)
     assert DJ.overlap_base_records(rs, device=CUDA) is None
+    if gate == "memory":  # the host has no device memory to run out of
+        assert DJ.join_gate(rs, K, W, 500, device=CPU) is None
 
 
 def test_fasta_only_short_reads_match_hinge_tpu_c_join(tmp_path,
@@ -299,8 +306,8 @@ def test_defaults_ab_alternates_arms_with_equal_outputs(monkeypatch):
     monkeypatch.setitem(AB.ARMS, "device", {"HINGE_DEVICE_JOIN": "1",
                                             "HINGE_DEVICE_VOTE": "1"})
     monkeypatch.setenv("HINGE_DEVICE_VOTE", "np")
-    e = AB.run(150_000, 15.0, device="cpu", errors=True,
-               order=("c", "device"))
+    monkeypatch.setattr(AB, "ORDER", ("c", "device"))
+    e = AB.run(150_000, 15.0, device="cpu", errors=True)
     assert os.environ["HINGE_DEVICE_VOTE"] == "np"
     c, dev = e["runs"]
     assert e["outputs_equal"] and c["consensus_sha256"] == dev["consensus_sha256"]
