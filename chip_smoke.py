@@ -37,7 +37,11 @@ every assemble() and consensus verb below takes the device vote:
              (overlap_base_records on cuda) must give records equal to
              the C join's (map_reads_to_targets, half pairs)
              on every column and trace byte; prints both walls, per-phase
-             times, blocks, hits and peak device memory.  The same on
+             times, blocks, hits, p3's anchors in and out and peak device
+             memory.  K4 (thin_rows, csrc/thin_rows.cu) must be bit-equal
+             to its twin thin_rows_ref on the same CUDA tensors of the
+             join's largest block; prints both times, K4's bound and
+             share.  The same on
              phase 5's reads with reads cut from them interleaved (fewer
              than k + w bases, some prefixes 70 times over, so that index
              buckets overflow).  A read set of MAX_TID reads must make
@@ -48,7 +52,8 @@ every assemble() and consensus verb below takes the device vote:
              records; prints both times;
 7. fasta only — assemble() from the reads alone with HINGE_DEVICE_JOIN
              and HINGE_DEVICE_VOTE unset, which on cuda must run the device
-             join, the device vote (their launch counters) and both kernels
+             join, the device vote (their launch counters), K4 and both
+             band-NW kernels
              and yield a contig >= 0.9 of the genome; the consensus stage
              rerun on the same draft with HINGE_DEVICE_VOTE=0 (the native
              C vote) must write a byte-equal X.consensus.fasta;
@@ -133,7 +138,8 @@ Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
 launches and windows per launch of phase 5, phase 3's numbers and
 phase 10's launches, windows per launch and numbers on its largest block
-beside them; K3's from phase 9) and, last, the device line {"ok": true,
+beside them; K3's from phase 9; K4's from phase 6, with phase 7's
+launches) and, last, the device line {"ok": true,
 "device": {...}}.  Imports no jax.
 """
 
@@ -162,6 +168,8 @@ KERNELS = {
                       "hinge_tpu/ops/pallas_band_nw.py:231"),
     "wave_align": ("hinge_tpu_torch/csrc/wave_align.cu",
                    "hinge_tpu/ops/wavefront.py:75"),
+    "thin_rows": ("hinge_tpu_torch/csrc/thin_rows.cu",
+                  "hinge_tpu/overlap/device_join.py:475"),
 }
 #: the kernels phases 3 and 5 check and time (K3 is phase 9's)
 BAND_NW = ("band_fill", "row_traceback")
@@ -329,6 +337,28 @@ def fill_bound(m, n, mrows):
     cells = B * mrows * BN_BW
     nbytes = int(m.sum()) + int(n.sum()) + 8 * B + cells
     return _bound(nbytes, FILL_OPS_PER_CELL * cells, INT16_OPS_S)
+
+
+#: K4's bytes: an anchor's (row, q, t) read and a kept anchor's (q, t,
+#: row) written, int64 each; a row's fr_start, fr_end, Q0, Q1, T0, T1, nb
+#: (int64) and okr (bool) written.  Its operations: the greedy test (a
+#: subtract and a compare) a walked anchor, the t test an emitted one
+#: bounded by the same count, and the span arithmetic a row
+THIN_BYTES_PER_ANCHOR = 24
+THIN_BYTES_PER_KEPT = 24
+THIN_BYTES_PER_ROW = 7 * 8 + 1
+THIN_OPS_PER_ANCHOR = 4
+THIN_OPS_PER_ROW = 16
+
+
+def thin_bound(n_a, n_f, n_rows):
+    """Least time for K4 on one join block of n_a accepted anchors, n_f
+    kept ones and n_rows rows: its input read once and its outputs written
+    once, against the operations of one walk of each row."""
+    nbytes = (THIN_BYTES_PER_ANCHOR * n_a + THIN_BYTES_PER_KEPT * n_f
+              + THIN_BYTES_PER_ROW * n_rows)
+    nops = THIN_OPS_PER_ANCHOR * n_a + THIN_OPS_PER_ROW * n_rows
+    return _bound(nbytes, nops, INT32_OPS_S)
 
 
 def _path_cells(moves, m, n):
@@ -694,6 +724,27 @@ class _WindowSpy:
         self.module.band_align_batch = self.fn
 
 
+class _ThinSpy:
+    """Keeps the arguments of the device join block whose p3 (thin_rows)
+    gets the most anchors; the tensors stay referenced, not copied."""
+
+    def __init__(self, module):
+        self.module, self.fn = module, module.thin_rows
+        self.block = None
+
+    def __enter__(self):
+        def spy(a_row, a_q, a_t, *rest):
+            if self.block is None or a_row.shape[0] > self.block[0].shape[0]:
+                self.block = (a_row, a_q, a_t, *rest)
+            return self.fn(a_row, a_q, a_t, *rest)
+
+        self.module.thin_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.thin_rows = self.fn
+
+
 def phase_golden():
     from tests import torch_golden
 
@@ -801,7 +852,8 @@ def phase_device_join(rs):
         peak = torch.cuda.max_memory_allocated()
         assert_stores_equal(got, ref)
     # a third device run, synchronised at every phase boundary
-    got = DJ.overlap_base_records(rs, device="cuda", stats=stats)
+    with _ThinSpy(DJ) as thin:
+        got = DJ.overlap_base_records(rs, device="cuda", stats=stats)
     assert_stores_equal(got, ref)
     log(f"[join] {ref.n} half-pair records, equal to the C join on every "
         f"column and trace byte ({len(ref.trace)} trace values)")
@@ -811,16 +863,53 @@ def phase_device_join(rs):
         f"{k} {stats[k]:.3f}s" for k in
         ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")))
     log(f"[join] {stats['blocks']} blocks, {stats['hits']} half-pair seed "
-        f"hits; peak device memory {peak} bytes")
+        f"hits, {stats['anchors']} accepted anchors into p3, "
+        f"{stats['kept']} kept; peak device memory {peak} bytes")
+    k4 = check_thin_rows(thin.block, stats["blocks"])
+    del thin
     phase_join_short_reads(rs)
     phase_join_gate()
     ops = [{"name": "device_join", "source": "hinge_tpu_torch/overlap/device_join.py",
             "replaces": "hinge_tpu/overlap/device_join.py:677",
             "ms": dev_walls[1] * 1e3, "c_ms": c_walls[1] * 1e3,
-            "equal": True, "peak_bytes": peak}]
+            "equal": True, "peak_bytes": peak, "blocks": stats["blocks"],
+            "anchors": stats["anchors"], "kept": stats["kept"]}]
     ops += [{"name": f"device_join.{k}", "ms": stats[k] * 1e3}
             for k in ("minimizer", "index", "p1", "p2", "p3", "p4")]
-    return ops
+    return ops, k4
+
+
+def check_thin_rows(block, blocks):
+    """K4 against its twin thin_rows_ref on the same CUDA tensors, the
+    largest block of phase 6's join: bit-equal on all 11 outputs (values,
+    dtypes, shapes); both times, K4's bound and share."""
+    from hinge_tpu_torch.overlap import device_join as DJ
+
+    a_row, a_q, a_t, *rest = block
+    got = DJ.launch_thin_rows(a_row, a_q, a_t, *rest)
+    want = DJ.thin_rows_ref(a_row, a_q, a_t, *rest)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"thin_rows (K4) differs from its twin on "
+                                 f"output {i}: {g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)}")
+    err = _max_abs_err(got, want)
+    n_a, n_f, n_rows = a_row.shape[0], got[0].shape[0], rest[0]
+    ms = _cuda_ms(lambda: DJ.launch_thin_rows(a_row, a_q, a_t, *rest), 10)
+    plain_ms = _cuda_ms(lambda: DJ.thin_rows_ref(a_row, a_q, a_t, *rest), 3)
+    b_ms, b_by = thin_bound(n_a, n_f, n_rows)
+    longest = int((got[4] - got[3]).max())
+    a_longest = int(torch.bincount(a_row, minlength=n_rows).max())
+    log(f"[join] K4 thin_rows on the largest of {blocks} blocks ({n_a} "
+        f"anchors, {n_rows} rows, longest {a_longest} anchors; {n_f} kept, "
+        f"longest {longest}): bit-equal to thin_rows_ref on 11 outputs; K4 "
+        f"{ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), share {b_ms / ms:.4f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+            "block": {"anchors": n_a, "kept": n_f, "rows": n_rows,
+                      "longest_row": a_longest}, "blocks": blocks}
 
 
 def with_short_reads(rs, seed=1):
@@ -2013,7 +2102,7 @@ def main():
          windows) = phase_real_size(tmp)
         block_errs, main = phase_main_block(block, parent)
         del block
-        ops = phase_device_join(rs)
+        ops, k4 = phase_device_join(rs)
         ops += phase_trim(rs, ov)
         del ov
         fasta_launches, vote_ops = phase_fasta_only(tmp, fasta)
@@ -2046,8 +2135,13 @@ def main():
                     "source": KERNELS["wave_align"][0],
                     "replaces": KERNELS["wave_align"][1], **k3,
                     "library_ms": None})
+    kernels.append({"name": "thin_rows", "route": "cuda",
+                    "source": KERNELS["thin_rows"][0],
+                    "replaces": KERNELS["thin_rows"][1],
+                    "launches": fasta_launches["thin_rows"], **k4,
+                    "library_ms": None})
     log(f"[fasta] kernel launches of the fasta-only path: "
-        f"{ {k: fasta_launches[k] for k in BAND_NW} }")
+        f"{ {k: fasta_launches[k] for k in (*BAND_NW, 'thin_rows')} }")
     log(f"[surface] kernel launches of the draft verb: "
         f"{ {k: surface_launches[k] for k in BAND_NW} }")
     print(json.dumps({"device_ops": ops}), flush=True)

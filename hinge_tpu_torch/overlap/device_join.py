@@ -35,6 +35,10 @@ What differs from hinge_tpu, and why it gives the same records:
 
 The key-packing gates of hinge_tpu stay (`join_gate`), beside one on the
 card's free memory: where one fails, overlap_base_records returns None.
+
+p3 (`thin_rows`) is a hand kernel on CUDA tensors, K4
+(csrc/thin_rows.cu: one thread walks a row once); its twin
+`thin_rows_ref` runs for CPU tensors.  The other programs are torch ops.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ import numpy as np
 import torch
 
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import DeviceError, to_device
+from hinge_tpu_torch.ops._build import load_kernels
 
 # copied from hinge_tpu/overlap/device_join.py (:61-62, :666-674)
 BANDBITS = 12          # band_rel field width in the 32-bit group key
@@ -65,9 +70,11 @@ _M2 = 0x94D049BB133111EB - (1 << 64)
 _B30 = 1 << 30
 _TBITS = 25  # row << 25 | q (or t) keys: q, t < 2^24 (join_gate) + slack
 
-#: calls of each device program on CUDA tensors, read by chip_smoke.py to
-#: prove the overlap stage went through this module
-launches = {"minimizer": 0, "index": 0, "p1": 0, "p2": 0, "p3": 0, "p4": 0}
+#: calls of each device program on CUDA tensors, and K4's launches
+#: ("thin_rows"), read by chip_smoke.py to prove the overlap stage went
+#: through this module
+launches = {"minimizer": 0, "index": 0, "p1": 0, "p2": 0, "p3": 0, "p4": 0,
+            "thin_rows": 0}
 
 
 def _count(name: str, t: torch.Tensor) -> None:
@@ -318,12 +325,80 @@ def chain_bands(skey, q_s, t_s, min_hits: int):
 
 def thin_rows(a_row, a_q, a_t, n_rows: int, k: int, sub_gap: int,
               min_span: int, min_cnt: int, tspace: int):
-    """p3: greedy sub_gap thinning (each anchor's successor is the first
-    hit >= sub_gap bases later in its row; the emission set is the orbit
-    of the row head, marked by pointer doubling), the monotone-t filter,
-    and per-row spans (n_rows > 0, each row with at least one hit).
-    Returns (f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb)."""
+    """p3 on the anchors' device: K4 (csrc/thin_rows.cu) for CUDA tensors,
+    the plain twin `thin_rows_ref` for CPU tensors.  Arguments and
+    outputs as for `thin_rows_ref`."""
+    dev = a_row.device
+    for name, x in (("a_row", a_row), ("a_q", a_q), ("a_t", a_t)):
+        if x.dtype != _I64 or x.dim() != 1 or x.device != dev:
+            raise ValueError(f"thin_rows: {name} must be int64 [n_a] on "
+                             f"{dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+    if not (a_row.shape == a_q.shape == a_t.shape):
+        raise ValueError("thin_rows: a_row, a_q, a_t differ in length")
+    if n_rows < 1:
+        raise ValueError(f"thin_rows: n_rows = {n_rows}, want > 0")
     _count("p3", a_row)
+    if dev.type == "cpu":
+        return thin_rows_ref(a_row, a_q, a_t, n_rows, k, sub_gap, min_span,
+                             min_cnt, tspace)
+    return launch_thin_rows(a_row, a_q, a_t, n_rows, k, sub_gap, min_span,
+                            min_cnt, tspace)
+
+
+def launch_thin_rows(a_row, a_q, a_t, n_rows: int, k: int, sub_gap: int,
+                     min_span: int, min_cnt: int, tspace: int):
+    """K4 on CUDA tensors that thin_rows has checked: the row walk, the
+    prefix sum of the kept counts, one host sync for their total, and the
+    gather into f.  Raises DeviceError when the kernel does not build or
+    launch, ValueError when a row keeps no anchor (the input broke the
+    one-anchor-a-row contract)."""
+    dev = a_row.device
+    if dev.type != "cuda":
+        raise ValueError(f"thin_rows: no kernel for device {dev}")
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    a_row, a_q, a_t = (x.contiguous() for x in (a_row, a_q, a_t))
+    n_a = a_row.shape[0]
+    new = lambda n, dt=_I64: torch.empty(n, dtype=dt, device=dev)  # noqa: E731
+    r_start, r_end, m = new(n_rows), new(n_rows), new(n_rows)
+    Q0, Q1, T0, T1, nb = (new(n_rows) for _ in range(5))
+    okr = new(n_rows, torch.bool)
+    k_q, k_t = new(n_a), new(n_a)
+    with torch.cuda.device(dev):
+        err = lib.hinge_thin_rows(
+            a_row.data_ptr(), a_q.data_ptr(), a_t.data_ptr(), n_a, n_rows,
+            *(int(x) for x in (k, sub_gap, min_span, min_cnt, tspace)),
+            *(x.data_ptr() for x in (r_start, r_end, k_q, k_t, m, Q0, Q1,
+                                     T0, T1, okr, nb)), stream)
+    if err:
+        raise DeviceError(f"thin_rows kernel launch failed: cudaError {err}")
+    fr_end = torch.cumsum(m, 0)
+    fr_start = fr_end - m
+    n_f, m_min = torch.stack([fr_end[-1], m.min()]).tolist()
+    if m_min < 1:
+        raise ValueError("thin_rows: a row kept no anchor; each of rows "
+                         "0..n_rows-1 must hold at least one")
+    f_q, f_t, f_row = new(n_f), new(n_f), new(n_f)
+    with torch.cuda.device(dev):
+        err = lib.hinge_thin_rows_gather(
+            a_row.data_ptr(), n_a, n_rows, r_start.data_ptr(), m.data_ptr(),
+            fr_start.data_ptr(), k_q.data_ptr(), k_t.data_ptr(),
+            f_q.data_ptr(), f_t.data_ptr(), f_row.data_ptr(), stream)
+    if err:
+        raise DeviceError(f"thin_rows gather launch failed: cudaError {err}")
+    launches["thin_rows"] += 1
+    return f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb
+
+
+def thin_rows_ref(a_row, a_q, a_t, n_rows: int, k: int, sub_gap: int,
+                  min_span: int, min_cnt: int, tspace: int):
+    """p3 as plain torch ops, K4's twin: greedy sub_gap thinning (each
+    anchor's successor is the first hit >= sub_gap bases later in its
+    row; the emission set is the orbit of the row head, marked by pointer
+    doubling), the monotone-t filter, and per-row spans (n_rows > 0, each
+    row with at least one hit; anchors int64, sorted by (row, q, t)).
+    Returns (f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb)."""
     dev = a_row.device
     n_a = a_row.shape[0]
     rows = torch.arange(n_rows, device=dev)
@@ -510,8 +585,8 @@ def overlap_base_records(
 ) -> Optional[OverlapStore]:
     """All-vs-all half-pair base records computed on `device`; None when a
     gate fails (see join_gate).  `stats`, when given, gathers per-phase
-    seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised), blocks
-    and hits.  The query minimizers wait on the host between the index
+    seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised), blocks,
+    hits, and p3's accepted anchors in and kept anchors out.  The query minimizers wait on the host between the index
     build and their block's join, so the device holds one block's at a
     time, and stay there in `mapper.minimizer_cache(rs)` for the map
     stage, as the C join leaves them."""
@@ -561,7 +636,7 @@ def overlap_base_records(
         return _mapper._empty(tspace)
 
     stores: List[OverlapStore] = []
-    n_hits = 0
+    n_hits = n_anchors = n_kept = 0
     for b0, r1, _ in blocks:
         m0, m1 = q_off[2 * b0], q_off[2 * r1]
         mh = to_device(q_hsh[m0:m1].view(np.int64), dev) ^ _SIGN
@@ -584,6 +659,8 @@ def overlap_base_records(
             continue
         p3 = thin_rows(a_row, a_q, a_t, nr, k, sub_gap, min_span, min_cnt,
                        tspace)
+        n_anchors += a_row.shape[0]
+        n_kept += p3[0].shape[0]
         del a_row, a_q, a_t
         clock.lap("p3")
         _, _, _, _, _, Q0, Q1, T0, T1, okr, nb = p3
@@ -616,6 +693,8 @@ def overlap_base_records(
     if stats is not None:
         stats["blocks"] = len(blocks)
         stats["hits"] = n_hits
+        stats["anchors"] = n_anchors
+        stats["kept"] = n_kept
     if not stores:
         return _mapper._empty(tspace)
     if len(stores) == 1:

@@ -248,3 +248,25 @@ def test_bench_without_a_card_raises_before_any_work(tmp_path):
     assert time.perf_counter() - t0 < 30
     assert r.returncode != 0
     assert "DeviceError" in r.stderr and r.stdout == ""
+
+
+def test_tree_ab_runs_trees_in_turns_with_equal_records(tmp_path):
+    """bench_tree_ab on a 40 kb genome on the CPU, this tree against
+    itself: four child runs in the order other, this, this, other, each
+    importing the package of its tree, with one records digest and one
+    consensus; without a card the entry point raises before any work."""
+    from hinge_tpu_torch.bench import bench_tree_ab as TA
+
+    e = TA.run(TA.ROOT, 40_000, 20, device="cpu")
+    assert [r["tree"] for r in e["runs"]] == list(TA.ORDER)
+    assert e["outputs_equal"] and len({r["records_sha256"] for r in e["runs"]}) == 1
+    assert len({r["assemble"]["consensus_sha256"] for r in e["runs"]}) == 1
+    for r in e["runs"]:
+        assert r["package"] == os.path.join(TA.ROOT, "hinge_tpu_torch")
+        assert r["records"] > 0 and r["join"]["blocks"] == 1
+        assert r["join"]["anchors"] >= r["join"]["kept"] > 0
+    r = subprocess.run([sys.executable, "-m", "hinge_tpu_torch.bench.bench_tree_ab",
+                        TA.ROOT], capture_output=True, text=True, timeout=60,
+                       env=_env(), cwd=str(tmp_path))
+    assert r.returncode != 0
+    assert "DeviceError" in r.stderr and r.stdout == ""

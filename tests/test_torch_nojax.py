@@ -208,7 +208,7 @@ def test_unported_switches_raise(shards, tmp_path, monkeypatch):
 
 def test_bench_entry_points_import_without_jax(tmp_path):
     """hinge_tpu_torch.bench and every one of its modules (the twins of
-    the repo-root JAX scripts, and the port's own defaults A/B) import in
+    the repo-root JAX scripts, and the port's own A/B entry points) import in
     a fresh interpreter without loading jax or hinge_tpu, and each twin
     names its source script in its first docstring line."""
     code = """
@@ -219,7 +219,7 @@ twins = {"bench": "bench.py", "bench_window_dp": "bench_window_dp.py",
          "bench_e2e": "bench_tpu_e2e.py", "bench_draft_ab": "bench_draft_ab.py",
          "profile_mapcons": "profile_mapcons.py",
          "bench_multihost": "bench_multihost.py"}
-own = ["bench_defaults_ab"]
+own = ["bench_defaults_ab", "bench_tree_ab"]
 assert set(names) == {pkg.__name__ + "." + n
                       for n in [*twins, *own, "__main__"]}, names
 for name in names:
