@@ -4,7 +4,8 @@
 
 --parent DIR holds the previous kernels' sources (band_fill.cu and
 row_traceback.cu of commit PARENT, wave_align.cu of commit PREV_K3) where
-the checkout has no git history.
+the checkout has no git history, and may hold thin_rows.cu of commit
+PREV_K4 (the checkout keeps a copy of it at PREV_K4_SOURCE).
 
 Runs hinge_tpu_torch on one CUDA card, phase by phase; any failure raises
 and the exit code is nonzero.  On cuda the overlap join and the consensus
@@ -38,10 +39,18 @@ every assemble() and consensus verb below takes the device vote:
              the C join's (map_reads_to_targets, half pairs)
              on every column and trace byte; prints both walls, per-phase
              times, blocks, hits, p3's anchors in and out and peak device
-             memory.  K4 (thin_rows, csrc/thin_rows.cu) must be bit-equal
-             to its twin thin_rows_ref on the same CUDA tensors of the
-             join's largest block; prints both times, K4's bound and
-             share.  The same on
+             memory.  K4 (thin_rows, csrc/thin_rows.cu: a warp a row,
+             the greedy step by ballots) and the previous K4 (commit
+             PREV_K4, one thread a row; from `--parent DIR`'s
+             thin_rows.cu, else the copy at PREV_K4_SOURCE, either checked
+             by its sha256; the phase fails without it) must each be
+             bit-equal to the twin thin_rows_ref on the same CUDA tensors
+             of the join's largest block, and K4 faster than the previous
+             K4 in each of four turns (previous, K4, K4, previous); prints
+             those times, the parts of each (row bounds, walk, cumsum,
+             the host copy of the total, f, other) as device time from a
+             torch.profiler trace, the twin's time, K4's bound and both
+             kernels' shares.  The same on
              phase 5's reads with reads cut from them interleaved (fewer
              than k + w bases, some prefixes 70 times over, so that index
              buckets overflow).  A read set of MAX_TID reads must make
@@ -339,22 +348,25 @@ def fill_bound(m, n, mrows):
     return _bound(nbytes, FILL_OPS_PER_CELL * cells, INT16_OPS_S)
 
 
-#: K4's bytes: an anchor's (row, q, t) read and a kept anchor's (q, t,
-#: row) written, int64 each; a row's fr_start, fr_end, Q0, Q1, T0, T1, nb
-#: (int64) and okr (bool) written.  Its operations: the greedy test (a
-#: subtract and a compare) a walked anchor, the t test an emitted one
-#: bounded by the same count, and the span arithmetic a row
-THIN_BYTES_PER_ANCHOR = 24
+#: K4's bytes: an anchor's q and t read and a kept anchor's (q, t, row)
+#: written, int64 each; a row's fr_start, fr_end, Q0, Q1, T0, T1, nb
+#: (int64) and okr (bool) written, and the sector of a_row that holds its
+#: first anchor read (where the row starts: a_row is sorted, so nothing
+#: else of it is needed).  Its operations: the greedy test (a subtract and
+#: a compare) a walked anchor, the t test an emitted one bounded by the
+#: same count, and the span arithmetic a row
+THIN_BYTES_PER_ANCHOR = 16
 THIN_BYTES_PER_KEPT = 24
-THIN_BYTES_PER_ROW = 7 * 8 + 1
+THIN_BYTES_PER_ROW = 7 * 8 + 1 + SECTOR
 THIN_OPS_PER_ANCHOR = 4
 THIN_OPS_PER_ROW = 16
 
 
 def thin_bound(n_a, n_f, n_rows):
     """Least time for K4 on one join block of n_a accepted anchors, n_f
-    kept ones and n_rows rows: its input read once and its outputs written
-    once, against the operations of one walk of each row."""
+    kept ones and n_rows rows: the input it needs read once (q and t of
+    every anchor, where each row starts) and its outputs written once,
+    against the operations of one walk of each row."""
     nbytes = (THIN_BYTES_PER_ANCHOR * n_a + THIN_BYTES_PER_KEPT * n_f
               + THIN_BYTES_PER_ROW * n_rows)
     nops = THIN_OPS_PER_ANCHOR * n_a + THIN_OPS_PER_ROW * n_rows
@@ -527,6 +539,87 @@ class PrevK3:
         if err:
             raise RuntimeError(f"previous wave_align launch failed: {err}")
         return px, py, aligned, fins[0], fins[1], fins[2]
+
+
+#: the commit whose K4 (csrc/thin_rows.cu, one thread a row) phase 6 times
+#: beside the current one; the checkout keeps its source at PREV_K4_SOURCE
+#: (byte-equal, PREV_K4_SHA256) for checkouts without git history
+PREV_K4 = "0c0885919be50e7585cc8661b0f176d8f911a037"
+PREV_K4_SOURCE = "hinge_tpu_torch/bench/prev_thin_rows_0c08859.cu"
+PREV_K4_SHA256 = "ce75a76eb1446d2e7f0d66d1a38abfae94e9408bba82d731057c8f9a10e5f67c"
+def _prev_k4_source():
+    """The previous K4's source: thin_rows.cu in --parent DIR when it is
+    there, else the checkout's copy; raises unless it hashes to
+    PREV_K4_SHA256."""
+    import hashlib
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), PREV_K4_SOURCE)
+    if "--parent" in sys.argv:
+        cand = os.path.join(sys.argv[sys.argv.index("--parent") + 1], "thin_rows.cu")
+        if os.path.exists(cand):
+            path = cand
+    if not os.path.exists(path):
+        raise AssertionError(f"the previous K4's source is missing: {path}")
+    with open(path, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()
+    if digest != PREV_K4_SHA256:
+        raise AssertionError(f"{path} is not commit {PREV_K4[:7]}'s thin_rows.cu "
+                             f"(sha256 {digest})")
+    return path
+
+
+class PrevK4:
+    """The previous K4 and its wrapper's logic (the row bounds and the walk,
+    one thread a row, in one call; a cumsum and one host sync; a gather),
+    built into a scratch directory for the A/B in the same process.  Not
+    part of the port."""
+
+    def __init__(self, tmp):
+        import ctypes
+
+        from hinge_tpu_torch.ops import _build
+
+        libs = _build.compile_sources([_prev_k4_source()],
+                                      os.path.join(tmp, "prev_k4_build"))
+        lib = ctypes.CDLL(next(iter(libs.values())))
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        self.fns = {}
+        for name, argtypes in (
+                ("hinge_thin_rows", [vp, vp, vp, *[ll] * 7, *[vp] * 12]),
+                ("hinge_thin_rows_gather", [vp, ll, ll, *[vp] * 9])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self.fns[name] = fn
+
+    def _call(self, name, *args):
+        err = self.fns[name](*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous K4 {name} launch failed: {err}")
+
+    def __call__(self, a_row, a_q, a_t, n_rows, k, sub_gap, min_span,
+                 min_cnt, tspace):
+        """The previous launch_thin_rows."""
+        dev = a_row.device
+        new = lambda n, dt=torch.int64: torch.empty(n, dtype=dt, device=dev)  # noqa: E731
+        n_a = a_row.shape[0]
+        r_start, r_end, m = new(n_rows), new(n_rows), new(n_rows)
+        Q0, Q1, T0, T1, nb = (new(n_rows) for _ in range(5))
+        okr = new(n_rows, torch.bool)
+        k_q, k_t = new(n_a), new(n_a)
+        ptr = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
+        params = [int(x) for x in (k, sub_gap, min_span, min_cnt, tspace)]
+        self._call("hinge_thin_rows", *ptr(a_row, a_q, a_t), n_a, n_rows,
+                   *params, *ptr(r_start, r_end, k_q, k_t, m, Q0, Q1, T0, T1,
+                                 okr, nb))
+        fr_end = torch.cumsum(m, 0)
+        fr_start = fr_end - m
+        n_f, m_min = torch.stack([fr_end[-1], m.min()]).tolist()
+        if m_min < 1:
+            raise ValueError("previous K4: a row kept no anchor")
+        f_q, f_t, f_row = new(n_f), new(n_f), new(n_f)
+        self._call("hinge_thin_rows_gather", a_row.data_ptr(), n_a, n_rows,
+                   *ptr(r_start, m, fr_start, k_q, k_t, f_q, f_t, f_row))
+        return f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb
 
 
 def _pack(qs, ts, dev):
@@ -826,7 +919,7 @@ def phase_real_size(tmp):
             (windows.qs, windows.ts))
 
 
-def phase_device_join(rs):
+def phase_device_join(rs, tmp):
     """The port's device join vs the C join on phase 5's reads; two runs
     of each, the C runs each computing their own minimizers."""
     from hinge_tpu_torch.bench import assert_stores_equal
@@ -865,7 +958,7 @@ def phase_device_join(rs):
     log(f"[join] {stats['blocks']} blocks, {stats['hits']} half-pair seed "
         f"hits, {stats['anchors']} accepted anchors into p3, "
         f"{stats['kept']} kept; peak device memory {peak} bytes")
-    k4 = check_thin_rows(thin.block, stats["blocks"])
+    k4 = check_thin_rows(thin.block, stats["blocks"], tmp)
     del thin
     phase_join_short_reads(rs)
     phase_join_gate()
@@ -879,37 +972,103 @@ def phase_device_join(rs):
     return ops, k4
 
 
-def check_thin_rows(block, blocks):
-    """K4 against its twin thin_rows_ref on the same CUDA tensors, the
-    largest block of phase 6's join: bit-equal on all 11 outputs (values,
-    dtypes, shapes); both times, K4's bound and share."""
+#: the parts of a K4 call: each device event of its trace goes to the first
+#: part one of whose names it contains, else to "other" (the previous K4's
+#: elementwise ops, the stack before its host copy)
+K4_PARTS = (("bounds", ("bounds_kernel", "Memset")), ("walk", ("walk_kernel",)),
+            ("cumsum", ("Scan",)), ("host_copy", ("Memcpy DtoH",)),
+            ("f", ("copy_kernel", "gather_kernel")))
+
+
+def _k4_parts_ms(run, reps=10):
+    """The device time of each part of a call `run()`, the mean of `reps`
+    calls in one torch.profiler trace: every kernel, memset and copy the
+    card ran, by name (K4_PARTS).  Raises when the trace holds no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys([p for p, _ in K4_PARTS] + ["other"], 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for p, names in K4_PARTS
+                     if any(n in e.name for n in names)), "other")
+        ms[part] += e.time_range.elapsed_us() / 1e3 / reps
+    if not ms["walk"] > 0:
+        raise AssertionError("torch.profiler's trace holds no walk kernel: "
+                             f"{sorted({e.name for e in prof.events()})[:20]}")
+    return ms
+
+
+def _in_turns(a, b):
+    """a, b, b, a timed back to back; (mean of a, mean of b, the four)."""
+    turns = [_cuda_ms(f, 10) for f in (a, b, b, a)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def check_thin_rows(block, blocks, tmp):
+    """K4 and the previous K4 against the twin thin_rows_ref on the same
+    CUDA tensors, the largest block of phase 6's join: bit-equal on all 11
+    outputs (values, dtypes, shapes), K4 faster in each of four turns; the
+    times, each one's parts, the twin's time, K4's bound and shares."""
     from hinge_tpu_torch.overlap import device_join as DJ
 
+    prev = PrevK4(tmp)
     a_row, a_q, a_t, *rest = block
-    got = DJ.launch_thin_rows(a_row, a_q, a_t, *rest)
+    n_rows = rest[0]
+    runs = {"K4": lambda: DJ.launch_thin_rows(a_row, a_q, a_t, *rest),
+            "previous K4": lambda: prev(a_row, a_q, a_t, *rest)}
     want = DJ.thin_rows_ref(a_row, a_q, a_t, *rest)
-    torch.cuda.synchronize()
-    for i, (g, w) in enumerate(zip(got, want)):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-            raise AssertionError(f"thin_rows (K4) differs from its twin on "
-                                 f"output {i}: {g.dtype} {tuple(g.shape)} vs "
-                                 f"{w.dtype} {tuple(w.shape)}")
-    err = _max_abs_err(got, want)
-    n_a, n_f, n_rows = a_row.shape[0], got[0].shape[0], rest[0]
-    ms = _cuda_ms(lambda: DJ.launch_thin_rows(a_row, a_q, a_t, *rest), 10)
+    err = 0
+    for who, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{who} differs from its twin on output "
+                                     f"{i}: {g.dtype} {tuple(g.shape)} vs "
+                                     f"{w.dtype} {tuple(w.shape)}")
+        err = max(err, _max_abs_err(got, want))
+        del got
+    n_a, n_f = a_row.shape[0], want[0].shape[0]
+    prev_ms, ms, turns = _in_turns(runs["previous K4"], runs["K4"])
+    parts = {who: _k4_parts_ms(run) for who, run in runs.items()}
     plain_ms = _cuda_ms(lambda: DJ.thin_rows_ref(a_row, a_q, a_t, *rest), 3)
     b_ms, b_by = thin_bound(n_a, n_f, n_rows)
-    longest = int((got[4] - got[3]).max())
+    longest = int((want[4] - want[3]).max())
     a_longest = int(torch.bincount(a_row, minlength=n_rows).max())
+    singles = int((torch.bincount(a_row, minlength=n_rows) == 1).sum())
     log(f"[join] K4 thin_rows on the largest of {blocks} blocks ({n_a} "
-        f"anchors, {n_rows} rows, longest {a_longest} anchors; {n_f} kept, "
-        f"longest {longest}): bit-equal to thin_rows_ref on 11 outputs; K4 "
-        f"{ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), share {b_ms / ms:.4f}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+        f"anchors, {n_rows} rows, {singles} of one anchor, longest "
+        f"{a_longest}; {n_f} kept, longest {longest}): K4 and the previous "
+        f"K4 bit-equal to thin_rows_ref on 11 outputs")
+    log("[join] K4 in turns (previous, K4, K4, previous): "
+        + ", ".join(f"{x:.4f}" for x in turns) + " ms")
+    log(f"[join] K4 {ms:.4f} ms, previous K4 {prev_ms:.4f} ms, twin "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), share "
+        f"{b_ms / ms:.4f} (previous {b_ms / prev_ms:.4f})")
+    for who, p in parts.items():
+        log(f"[join] {who} parts (device ms a call, torch.profiler): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+            + f"; sum {sum(p.values()):.4f}")
+    if not max(turns[1:3]) < min(turns[0], turns[3]):
+        raise AssertionError("K4 is not faster than the previous K4 in every "
+                             "turn")
+    return {"max_abs_err": err, "ms": ms, "prev_ms": prev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / ms, "prev_share": b_ms / prev_ms,
+            "turns": {"prev_k4_k4_prev": turns},
+            "parts": {"k4": parts["K4"], "prev": parts["previous K4"]},
             "block": {"anchors": n_a, "kept": n_f, "rows": n_rows,
-                      "longest_row": a_longest}, "blocks": blocks}
+                      "single_rows": singles, "longest_row": a_longest},
+            "blocks": blocks}
 
 
 def with_short_reads(rs, seed=1):
@@ -2102,7 +2261,7 @@ def main():
          windows) = phase_real_size(tmp)
         block_errs, main = phase_main_block(block, parent)
         del block
-        ops, k4 = phase_device_join(rs)
+        ops, k4 = phase_device_join(rs, tmp)
         ops += phase_trim(rs, ov)
         del ov
         fasta_launches, vote_ops = phase_fasta_only(tmp, fasta)

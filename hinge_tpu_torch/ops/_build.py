@@ -35,8 +35,10 @@ SIGNATURES = {
     "hinge_wave_align": [_VP, _VP, _LL, _VP, _VP, *[_I] * 7, _LL, _I,
                          *[_VP] * 8],
     "hinge_wave_align_resident": [_I, _I, _LL, _I],
-    "hinge_thin_rows": [_VP, _VP, _VP, *[_LL] * 7, *[_VP] * 12],
-    "hinge_thin_rows_gather": [_VP, _LL, _LL, *[_VP] * 9],
+    "hinge_thin_rows_bounds": [_VP, _LL, _LL, _VP, _VP, _VP],
+    "hinge_thin_rows_walk": [_VP, _VP, _VP, *[_LL] * 6, *[_VP] * 11],
+    "hinge_thin_rows_sync": [_VP, _LL, _VP, _VP, _VP],
+    "hinge_thin_rows_copy": [*[_VP] * 5, _LL, *[_VP] * 5],
 }
 
 _lock = threading.Lock()

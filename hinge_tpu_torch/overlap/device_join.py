@@ -37,12 +37,14 @@ The key-packing gates of hinge_tpu stay (`join_gate`), beside one on the
 card's free memory: where one fails, overlap_base_records returns None.
 
 p3 (`thin_rows`) is a hand kernel on CUDA tensors, K4
-(csrc/thin_rows.cu: one thread walks a row once); its twin
-`thin_rows_ref` runs for CPU tensors.  The other programs are torch ops.
+(csrc/thin_rows.cu: a warp walks a row once, 32 anchors a step, the
+greedy step by ballots and shuffles); its twin `thin_rows_ref` runs for
+CPU tensors.  The other programs are torch ops.
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import List, Optional
 
@@ -348,46 +350,59 @@ def thin_rows(a_row, a_q, a_t, n_rows: int, k: int, sub_gap: int,
 
 def launch_thin_rows(a_row, a_q, a_t, n_rows: int, k: int, sub_gap: int,
                      min_span: int, min_cnt: int, tspace: int):
-    """K4 on CUDA tensors that thin_rows has checked: the row walk, the
-    prefix sum of the kept counts, one host sync for their total, and the
-    gather into f.  Raises DeviceError when the kernel does not build or
-    launch, ValueError when a row keeps no anchor (the input broke the
+    """K4 on CUDA tensors that thin_rows has checked: the row bounds, the
+    walk (a warp a row, the kept anchors to scratch), the prefix sum of
+    the kept counts with one host sync for their total, and the copy into
+    f.  Raises DeviceError when a kernel does not build or launch,
+    ValueError when a row keeps no anchor (the input broke the
     one-anchor-a-row contract)."""
     dev = a_row.device
     if dev.type != "cuda":
         raise ValueError(f"thin_rows: no kernel for device {dev}")
     lib = load_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    a_row, a_q, a_t = (x.contiguous() for x in (a_row, a_q, a_t))
+    a_row, a_q, a_t = a_row.contiguous(), a_q.contiguous(), a_t.contiguous()
     n_a = a_row.shape[0]
-    new = lambda n, dt=_I64: torch.empty(n, dtype=dt, device=dev)  # noqa: E731
-    r_start, r_end, m = new(n_rows), new(n_rows), new(n_rows)
-    Q0, Q1, T0, T1, nb = (new(n_rows) for _ in range(5))
-    okr = new(n_rows, torch.bool)
-    k_q, k_t = new(n_a), new(n_a)
+    params = [int(x) for x in (k, sub_gap, min_span, min_cnt, tspace)]
+
+    def check(err, what):
+        if err:
+            raise DeviceError(f"thin_rows {what} failed: cudaError {err}")
+
     with torch.cuda.device(dev):
-        err = lib.hinge_thin_rows(
-            a_row.data_ptr(), a_q.data_ptr(), a_t.data_ptr(), n_a, n_rows,
-            *(int(x) for x in (k, sub_gap, min_span, min_cnt, tspace)),
-            *(x.data_ptr() for x in (r_start, r_end, k_q, k_t, m, Q0, Q1,
-                                     T0, T1, okr, nb)), stream)
-    if err:
-        raise DeviceError(f"thin_rows kernel launch failed: cudaError {err}")
-    fr_end = torch.cumsum(m, 0)
-    fr_start = fr_end - m
-    n_f, m_min = torch.stack([fr_end[-1], m.min()]).tolist()
-    if m_min < 1:
-        raise ValueError("thin_rows: a row kept no anchor; each of rows "
-                         "0..n_rows-1 must hold at least one")
-    f_q, f_t, f_row = new(n_f), new(n_f), new(n_f)
-    with torch.cuda.device(dev):
-        err = lib.hinge_thin_rows_gather(
-            a_row.data_ptr(), n_a, n_rows, r_start.data_ptr(), m.data_ptr(),
-            fr_start.data_ptr(), k_q.data_ptr(), k_t.data_ptr(),
-            f_q.data_ptr(), f_t.data_ptr(), f_row.data_ptr(), stream)
-    if err:
-        raise DeviceError(f"thin_rows gather launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # one buffer: fr_start, fr_end, Q0, Q1, T0, T1, nb (the outputs),
+        # then m, r_start [n_rows + 1] and stats [2], 8 bytes a word
+        rows = torch.empty(9 * n_rows + 3, dtype=_I64, device=dev)
+        okr = torch.empty(n_rows, dtype=torch.bool, device=dev)
+        fr_start, fr_end, Q0, Q1, T0, T1, nb, m, r_start = (
+            rows.data_ptr() + 8 * n_rows * i for i in range(9))
+        stats = r_start + 8 * (n_rows + 1)
+        scratch = torch.empty(2 * n_a, dtype=_I64, device=dev)
+        k_q = scratch.data_ptr()
+        k_t = k_q + 8 * n_a
+        check(lib.hinge_thin_rows_bounds(a_row.data_ptr(), n_a, n_rows,
+                                         r_start, stats, stream), "bounds")
+        check(lib.hinge_thin_rows_walk(
+            a_q.data_ptr(), a_t.data_ptr(), r_start, n_rows, *params, k_q,
+            k_t, m, Q0, Q1, T0, T1, okr.data_ptr(), nb, stats, stream),
+            "walk")
+        torch.cumsum(rows[7 * n_rows : 8 * n_rows], 0,
+                     out=rows[n_rows : 2 * n_rows])
+        host = (ctypes.c_longlong * 2)()
+        check(lib.hinge_thin_rows_sync(fr_end, n_rows, stats,
+                                       ctypes.addressof(host), stream), "sync")
+        n_f, m_min = host
+        if m_min < 1:
+            raise ValueError("thin_rows: a row kept no anchor; each of rows "
+                             "0..n_rows-1 must hold at least one")
+        f = torch.empty(3 * n_f, dtype=_I64, device=dev)
+        f_q, f_t, f_row = (f.data_ptr() + 8 * n_f * i for i in range(3))
+        check(lib.hinge_thin_rows_copy(r_start, m, fr_end, k_q, k_t, n_rows,
+                                       f_q, f_t, f_row, fr_start, stream),
+              "copy")
     launches["thin_rows"] += 1
+    f_q, f_t, f_row = f.view(3, n_f)
+    fr_start, fr_end, Q0, Q1, T0, T1, nb = rows[: 7 * n_rows].view(7, n_rows)
     return f_q, f_t, f_row, fr_start, fr_end, Q0, Q1, T0, T1, okr, nb
 
 
