@@ -922,13 +922,14 @@ def phase_real_size(tmp):
 def phase_device_join(rs, tmp):
     """The port's device join vs the C join on phase 5's reads; two runs
     of each, the C runs each computing their own minimizers."""
-    from hinge_tpu_torch.bench import assert_stores_equal
+    from hinge_tpu_torch.bench import assert_stores_equal, join_stats
     from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
     from hinge_tpu_torch.overlap import device_join as DJ
+    from hinge_tpu_torch.utils.log import record
 
     os.environ.pop("HINGE_DEVICE_JOIN", None)
     targets = [rs.get_bases(i) for i in range(rs.n_reads)]
-    c_walls, dev_walls, stats = [], [], {}
+    c_walls, dev_walls = [], []
     for run in range(2):
         if hasattr(rs, "_minimizer_cache"):
             del rs._minimizer_cache
@@ -944,17 +945,22 @@ def phase_device_join(rs, tmp):
         dev_walls.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
         assert_stores_equal(got, ref)
-    # a third device run, synchronised at every phase boundary
-    with _ThinSpy(DJ) as thin:
-        got = DJ.overlap_base_records(rs, device="cuda", stats=stats)
+    # a third device run in a record, under torch.profiler so that each
+    # phase span carries its stream seconds (no phase synchronises)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    with _ThinSpy(DJ) as thin, prof, record("join") as call:
+        got = DJ.overlap_base_records(rs, device="cuda")
+    del prof
+    stats = join_stats(call)
     assert_stores_equal(got, ref)
     log(f"[join] {ref.n} half-pair records, equal to the C join on every "
         f"column and trace byte ({len(ref.trace)} trace values)")
     log(f"[join] C join wall {c_walls[0]:.3f}s, {c_walls[1]:.3f}s; device "
         f"join wall {dev_walls[0]:.3f}s (first), {dev_walls[1]:.3f}s")
-    log("[join] per phase (CUDA-synchronised): " + ", ".join(
-        f"{k} {stats[k]:.3f}s" for k in
-        ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")))
+    log("[join] per phase, stream s (host wall s, no syncs): " + ", ".join(
+        f"{k} {stats[k + '_stream_s']:.3f} ({stats[k + '_host_s']:.3f})"
+        for k in ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")))
     log(f"[join] {stats['blocks']} blocks, {stats['hits']} half-pair seed "
         f"hits, {stats['anchors']} accepted anchors into p3, "
         f"{stats['kept']} kept; peak device memory {peak} bytes")
@@ -967,7 +973,9 @@ def phase_device_join(rs, tmp):
             "ms": dev_walls[1] * 1e3, "c_ms": c_walls[1] * 1e3,
             "equal": True, "peak_bytes": peak, "blocks": stats["blocks"],
             "anchors": stats["anchors"], "kept": stats["kept"]}]
-    ops += [{"name": f"device_join.{k}", "ms": stats[k] * 1e3}
+    ops += [{"name": f"device_join.{k}",
+             "stream_ms": stats[k + "_stream_s"] * 1e3,
+             "host_ms": stats[k + "_host_s"] * 1e3}
             for k in ("minimizer", "index", "p1", "p2", "p3", "p4")]
     return ops, k4
 

@@ -89,6 +89,30 @@ def child_env() -> dict:
     return env
 
 
+#: the device join's phase spans, `overlap.<phase>` (overlap/device_join.py)
+JOIN_PHASES = ("minimizer", "index", "p1", "p2", "p3", "p4", "fetch")
+
+
+def join_stats(call):
+    """The device join's counters in a finished `utils.log` call (blocks,
+    hits, anchors into p3, kept) and, summed over blocks, each phase's
+    host wall, `<phase>_host_s` (no phase synchronises, so it holds the
+    host's waits for the device that fall in it), and where the call ran
+    on CUDA under torch.profiler its stream seconds, `<phase>_stream_s`;
+    None when no device join ran in the call."""
+    got = {k[len("join."):]: v for k, v in call.counters.items()
+           if k.startswith("join.")}
+    if not got:
+        return None
+    for phase in JOIN_PHASES:
+        name = "overlap." + phase
+        for key, secs in ((phase + "_host_s", call.wall_s(name)),
+                          (phase + "_stream_s", call.stream_s(name))):
+            if secs is not None:
+                got[key] = secs
+    return got
+
+
 def sync(dev: torch.device) -> None:
     """Wait for `dev`'s queued work (a no-op on the CPU)."""
     if dev.type == "cuda":

@@ -13,10 +13,10 @@ phase 5's read errors under --errors):
 The runs go in the order c, device, device, c, in one process, after
 one warm-up run of each arm on a 300 kb genome (kernel and native
 builds, the CUDA context).  Each run reports its wall, the stage
-walls (`utils/log.timings`), the device join's per-phase seconds, blocks
-and hits (`overlap_base_records`' stats, which synchronise at every phase
-boundary), the launch counts, the peak device memory, n_contigs,
-longest/genome and the sha256 of the draft and consensus FASTA; every
+walls (`utils/log.timings`), the device join's counters and per-phase
+host walls (`bench.join_stats` of the call's record), the launch
+counts, the peak device memory, n_contigs, longest/genome and the
+sha256 of the draft and consensus FASTA; every
 run must give the same contigs and FASTA bytes.  Then the join alone: the
 C join (`map_reads_to_targets(half_pairs=True)`) and the device join on
 the same reads must give equal half-pair records on every column and
@@ -41,10 +41,11 @@ import time
 import torch
 
 from hinge_tpu_torch.bench import (READ_ERRORS, assert_stores_equal, card,
-                                   record, sync)
+                                   join_stats, record, sync)
 from hinge_tpu_torch.bench.bench_e2e import (assemble_fasta, simulate_reads,
                                              write_reads)
 from hinge_tpu_torch.device import resolve_device
+from hinge_tpu_torch.utils import log as L
 
 SWITCHES = ("HINGE_DEVICE_JOIN", "HINGE_DEVICE_VOTE")
 ARMS = {"c": {"HINGE_DEVICE_JOIN": "0", "HINGE_DEVICE_VOTE": "0"},
@@ -75,12 +76,10 @@ def _sha256(path):
 
 def run_arm(arm, fasta, workdir, genome_len, *, device) -> dict:
     """One assemble() from `fasta` under `arm`'s switches; its entry."""
-    stats = {}
     with arm_switches(arm):
-        got = assemble_fasta(fasta, workdir, genome_len, device=device,
-                             join_stats=stats)
+        got = assemble_fasta(fasta, workdir, genome_len, device=device)
     return {
-        "arm": arm, **got, "device_join": stats or None,
+        "arm": arm, **got, "device_join": join_stats(L.last_call()),
         "draft_sha256": _sha256(os.path.join(workdir, "asm.draft.fasta")),
         "consensus_sha256": _sha256(
             os.path.join(workdir, "asm.consensus.fasta")),
@@ -89,8 +88,9 @@ def run_arm(arm, fasta, workdir, genome_len, *, device) -> dict:
 
 def check_join(rs, *, device) -> dict:
     """The C join and the device join on `rs`: equal half-pair records
-    (raises where they differ), both walls, the device join's per-phase
-    stats and peak device memory, and the read bases."""
+    (raises where they differ), both walls, the device join's counters
+    and per-phase host walls (`join_stats`), its peak device memory, and
+    the read bases."""
     from hinge_tpu_torch.overlap import device_join as DJ
     from hinge_tpu_torch.overlap.mapper import map_reads_to_targets
 
@@ -102,17 +102,18 @@ def check_join(rs, *, device) -> dict:
     del targets
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    stats = {}
     t0 = time.perf_counter()
-    got = DJ.overlap_base_records(rs, device=dev, stats=stats)
-    sync(dev)
+    with L.record("join") as call:
+        got = DJ.overlap_base_records(rs, device=dev)
+        sync(dev)
     dev_s = time.perf_counter() - t0
     if got is None:
         raise AssertionError(f"the device join's gate refused the reads: "
                              f"{DJ.join_gate(rs, 15, 12, 500, device=dev)}")
     assert_stores_equal(got, ref)
     return {"records": ref.n, "trace_values": len(ref.trace), "equal": True,
-            "c_join_s": c_s, "device_join_s": dev_s, "device_join": stats,
+            "c_join_s": c_s, "device_join_s": dev_s,
+            "device_join": join_stats(call),
             "read_bases": int(rs.length.sum()),
             "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None)}

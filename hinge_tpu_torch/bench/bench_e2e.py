@@ -67,8 +67,8 @@ def busy_seconds(trace_json: str) -> float:
     return busy / 1e6
 
 
-def assemble_fasta(fasta, workdir, genome_len, *, device, trace_dir="",
-                   join_stats=None) -> dict:
+def assemble_fasta(fasta, workdir, genome_len, *, device,
+                   trace_dir="") -> dict:
     """One assemble() from `fasta` into `workdir` on `device`, with the
     launch counters zeroed and the peak memory reset before it (its log
     lines go to the pipeline's logger); the wall, the stage walls, the
@@ -89,8 +89,7 @@ def assemble_fasta(fasta, workdir, genome_len, *, device, trace_dir="",
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     res = assemble(fasta=fasta, workdir=workdir, device=dev,
-                   log=lambda *a: None, trace_dir=trace_dir,
-                   join_stats=join_stats)
+                   log=lambda *a: None, trace_dir=trace_dir)
     sync(dev)
     wall = time.perf_counter() - t0
     longest = max((len(s) for _, s in res["contigs"]), default=0)

@@ -7,12 +7,14 @@ other, each importing `hinge_tpu_torch` from its own tree.  A child
 warms up on a genome of at most 300 kb (the kernel and native builds,
 the CUDA context), reads the FASTA and runs:
 
-- the device join alone, `overlap_base_records(stats=...)`, whose stats
-  synchronise at every phase boundary: the join's wall, its per-phase
-  seconds, blocks and hits, and a sha256 of its records;
+- the device join alone, `overlap_base_records`: the join's wall, its
+  counters and per-phase host walls (`bench.join_stats` of a
+  `utils.log.record` around it; a tree from before the recorder gives
+  its join's `stats=` keyword, synchronised at every phase boundary,
+  under other keys), and a sha256 of its records;
 - `bench_defaults_ab.run_arm("device", ...)`: assemble() from the FASTA
-  under the CUDA defaults, its stage walls, the join's per-phase stats
-  and the sha256 of the draft and consensus FASTA.
+  under the CUDA defaults, its stage walls, the join's counters and
+  per-phase seconds and the sha256 of the draft and consensus FASTA.
 
 Every run must give the same records and FASTA bytes.  Each child's entry
 and the whole entry are printed as JSON lines.  The other tree is a
@@ -74,10 +76,9 @@ def child(fasta, warm, genome_len, warm_len, workdir, device):
             device=dev)
     warm_s = time.perf_counter() - t0
     rs = read_fasta(fasta)
-    stats = {}
     sync(dev)
     t0 = time.perf_counter()
-    got = DJ.overlap_base_records(rs, device=dev, stats=stats)
+    got, stats = _join(DJ, rs, dev)
     sync(dev)
     entry = {"package": os.path.dirname(os.path.dirname(DJ.__file__)),
              "warmup_s": warm_s, "join_s": time.perf_counter() - t0,
@@ -87,6 +88,27 @@ def child(fasta, warm, genome_len, warm_len, workdir, device):
     entry["assemble"] = run_arm("device", fasta, os.path.join(workdir, "run"),
                                 genome_len, device=dev)
     return entry
+
+
+def _join(DJ, rs, dev):
+    """The device join of the tree on sys.path on `rs`: (records, its
+    counters and phase seconds).  A tree from before the recorder gives
+    its `stats=` keyword's phase seconds, synchronised at every phase
+    boundary, as `<phase>_sync_s`: a quantity of their own, apart from
+    the recorder's `<phase>_host_s`."""
+    from hinge_tpu_torch.utils import log as L
+
+    if not hasattr(L, "record"):
+        stats = {}
+        got = DJ.overlap_base_records(rs, device=dev, stats=stats)
+        counters = ("blocks", "hits", "anchors", "kept")
+        return got, {(k if k in counters else k + "_sync_s"): v
+                     for k, v in stats.items()}
+    from hinge_tpu_torch.bench import join_stats
+
+    with L.record("join") as call:
+        got = DJ.overlap_base_records(rs, device=dev)
+    return got, join_stats(call)
 
 
 def run(other, genome_len, coverage, *, device, errors=False,

@@ -62,7 +62,7 @@ def profile(genome_len, coverage, *, device, device_vote=False,
     from hinge_tpu_torch.io.fasta import write_fasta
     from hinge_tpu_torch.io.las import write_las
     from hinge_tpu_torch.pipeline import _assemble_body
-    from hinge_tpu_torch.utils.log import stage_timer
+    from hinge_tpu_torch.utils.log import record, stage_timer
 
     dev = resolve_device(device)
     walls, tables = {}, {}
@@ -71,11 +71,11 @@ def profile(genome_len, coverage, *, device, device_vote=False,
     def profiled(name, logger=None):
         prof = cProfile.Profile() if name in PROFILED else None
         t0 = time.perf_counter()
-        with stage_timer(name, logger):
+        with stage_timer(name, logger) as sp:
             if prof:
                 prof.enable()
             try:
-                yield
+                yield sp
             finally:
                 if prof:
                     prof.disable()
@@ -96,9 +96,10 @@ def profile(genome_len, coverage, *, device, device_vote=False,
         vote = os.environ.get("HINGE_DEVICE_VOTE")
         os.environ["HINGE_DEVICE_VOTE"] = "1" if device_vote else "0"
         try:
-            _assemble_body(fasta, "", "", las, wd, False, False,
-                           os.path.join(wd, "asm"), nominal_config(), log,
-                           profiled, 12, dev)
+            with record("assemble"):
+                _assemble_body(fasta, "", "", las, wd, False, False,
+                               os.path.join(wd, "asm"), nominal_config(), log,
+                               profiled, 12, dev)
         finally:
             if vote is None:
                 os.environ.pop("HINGE_DEVICE_VOTE", None)

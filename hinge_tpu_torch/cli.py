@@ -484,7 +484,7 @@ def cmd_single_strand(args):
 def cmd_assemble(args):
     """One-shot pipeline: reads + overlaps -> consensus GFA."""
     from hinge_tpu_torch.pipeline import assemble
-    from hinge_tpu_torch.utils.log import timings
+    from hinge_tpu_torch.utils.log import last_call
 
     assemble(
         fasta=args.fasta, paf=args.paf, db=args.db, las=args.las,
@@ -492,8 +492,8 @@ def cmd_assemble(args):
         norevcomp=args.norevcomp, trace_dir=args.trace, device=args.device,
     )
     if args.timings:
-        for name, dt in timings().items():
-            print(f"[timing] {name}: {dt:.2f}s")
+        for line in last_call().tree():
+            print(f"[timing] {line}")
 
 
 def cmd_sweep(args):
@@ -699,7 +699,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     sp.add_argument("--trace", default="",
                     help="write a torch profiler trace to this dir")
     sp.add_argument("--timings", action="store_true",
-                    help="print per-stage wall times at the end")
+                    help="print the call's span tree at the end: wall, "
+                    "self and CPU seconds (stream seconds with --trace), "
+                    "and its counters")
     _add_device_flag(sp)
     sp.set_defaults(func=cmd_assemble)
 

@@ -1,4 +1,4 @@
-"""Device selection and host->device copies.
+"""Device selection and the copies between host and device.
 
 There is no fallback: a caller that asks for "cuda" on a machine without
 a card gets an error, never a silent CPU run.
@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hinge_tpu_torch.utils.log import count
 
 
 class DeviceError(RuntimeError):
@@ -43,5 +45,19 @@ def resolve_device(device) -> torch.device:
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Copy a numpy array onto `device` with its dtype unchanged."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """Copy a numpy array onto `device` with its dtype unchanged; counted
+    in the open call's `copy.h2d_bytes` (0 for a CPU device)."""
+    a = np.ascontiguousarray(a)
+    cuda = torch.device(device).type == "cuda"
+    count("copy.h2d_bytes", a.nbytes if cuda else 0)
+    return torch.from_numpy(a).to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a numpy array on the host; a CUDA tensor's copy is counted in
+    the open call's `copy.d2h_bytes` and `copy.d2h_calls` (0 for a CPU
+    tensor)."""
+    cuda = t.is_cuda
+    count("copy.d2h_bytes", t.numel() * t.element_size() if cuda else 0)
+    count("copy.d2h_calls", int(cuda))
+    return t.cpu().numpy()

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from hinge_tpu_torch.ops.myers import align_full
-from hinge_tpu_torch.device import DeviceError, to_device
+from hinge_tpu_torch.device import DeviceError, to_device, to_host
+from hinge_tpu_torch.utils.log import count, span
 from hinge_tpu_torch.ops._build import load_kernels
 
 GAP = 4
@@ -274,8 +275,11 @@ def band_align_batch(
     windows, consuming both sequences entirely (align_full semantics).
 
     Windows whose length difference the band cannot hold, and empty
-    queries, go to the scalar Myers path; the rest are sorted by query
-    length and aligned on `device` in blocks of at most max_batch."""
+    queries, go to the scalar Myers path; the rest (counted as
+    `band_nw.pairs`) are sorted by query length and aligned on `device`
+    in blocks of at most max_batch, each block in the spans
+    `band_nw.pack` (padding), `.device` (K1/K2), `.fetch` (the row
+    records to the host) and `.emit` (`_emit_rowrec`)."""
     out: List = [None] * len(qs)
     todo = []
     for i in range(len(qs)):
@@ -284,24 +288,29 @@ def band_align_batch(
         else:
             todo.append(i)
     order = sorted(todo, key=lambda i: len(qs[i]))
+    count("band_nw.pairs", len(order))
     for blk in range(0, len(order), max_batch):
-        sel = order[blk : blk + max_batch]
-        qsel = [qs[i] for i in sel]
-        tsel = [ts[i] for i in sel]
-        m = np.array([len(x) for x in qsel], np.int32)
-        n = np.array([len(x) for x in tsel], np.int32)
-        qc = np.zeros((len(sel), int(m.max())), np.uint8)
-        tc = np.zeros((len(sel), int(n.max())), np.uint8)
-        for w in range(len(sel)):
-            qc[w, : m[w]] = qsel[w]
-            tc[w, : n[w]] = tsel[w]
-        dm, dn = to_device(m, device), to_device(n, device)
-        moves = band_fill(to_device(qc, device), to_device(tc, device),
-                          dm, dn, mrows=int(m.max()))
-        cnts, mv0s, j_rem = row_traceback(moves, dm, dn)
-        del moves  # free this block's moves before the next block's fill
-        res = _emit_rowrec(qsel, tsel, cnts.cpu().numpy(),
-                           mv0s.cpu().numpy(), j_rem.cpu().numpy())
-        for w, i in enumerate(sel):
-            out[i] = res[w]
+        with span("band_nw.pack"):
+            sel = order[blk : blk + max_batch]
+            qsel = [qs[i] for i in sel]
+            tsel = [ts[i] for i in sel]
+            m = np.array([len(x) for x in qsel], np.int32)
+            n = np.array([len(x) for x in tsel], np.int32)
+            qc = np.zeros((len(sel), int(m.max())), np.uint8)
+            tc = np.zeros((len(sel), int(n.max())), np.uint8)
+            for w in range(len(sel)):
+                qc[w, : m[w]] = qsel[w]
+                tc[w, : n[w]] = tsel[w]
+        with span("band_nw.device", device):
+            dm, dn = to_device(m, device), to_device(n, device)
+            moves = band_fill(to_device(qc, device), to_device(tc, device),
+                              dm, dn, mrows=int(m.max()))
+            cnts, mv0s, j_rem = row_traceback(moves, dm, dn)
+            del moves  # free this block's moves before the next block's fill
+        with span("band_nw.fetch"):
+            recs = [to_host(x) for x in (cnts, mv0s, j_rem)]
+        with span("band_nw.emit"):
+            res = _emit_rowrec(qsel, tsel, *recs)
+            for w, i in enumerate(sel):
+                out[i] = res[w]
     return out

@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import to_device, to_host
 
 GAP = 4
 
@@ -142,7 +142,7 @@ def sharded_vote_tallies(
         vote_chunk(*t, *(to_device(x[i], dev) for x in (fa, fb, so, p0)),
                    alen, chop)
         tables.append(torch.cat(t))
-    s, c, i1, i5 = (x.cpu().numpy() for x in torch.split(
+    s, c, i1, i5 = (to_host(x) for x in torch.split(
         mesh.psum_all(tables), [alen_pad * 5, alen_pad, alen_pad, alen_pad * 5]))
     return (s[: alen * 5].reshape(alen, 5), c[:alen], i1[:alen],
             i5[: alen * 5].reshape(alen, 5))
@@ -181,5 +181,5 @@ def vote_tallies_device(
                    to_device(seg_off[s0 : s1 + 1] - lo, dev),
                    to_device(pos0[s0:s1], dev), alen, chop)
         s0 = s1
-    return (scores.cpu().numpy().reshape(alen, 5), cov.cpu().numpy(),
-            ins_score.cpu().numpy(), ins_scores.cpu().numpy().reshape(alen, 5))
+    return (to_host(scores).reshape(alen, 5), to_host(cov),
+            to_host(ins_score), to_host(ins_scores).reshape(alen, 5))

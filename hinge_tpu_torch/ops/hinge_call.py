@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import to_device, to_host
 
 I32 = torch.int32
 _BIG = 1 << 29  # > any read coordinate/overhang; non-supporters sort last
@@ -172,4 +172,4 @@ def call_hinges_device(
         *(to_device(cols[c], device) for c in range(4)),
         to_device(valid, device), to_device(ordidx, device),
         theta=theta, htl=htl, hbl=hbl, hrut=hrut, hbpt=hbpt)
-    return bridged.cpu().numpy(), support.cpu().numpy()
+    return to_host(bridged), to_host(support)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from hinge_tpu_torch.data.overlaps import OverlapStore
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import to_device, to_host
 from hinge_tpu_torch.ops import classify as CL
 
 
@@ -176,7 +176,7 @@ def _lattice_trim(sub: OverlapStore, ears, eare, ebrs, ebre, device):
         dv(sub.rc), dv(ears), dv(eare), dv(ebrs), dv(ebre),
         dv(tw.npairs), dv(tw.pair_off), dv(tw.cum), dv(seg_id), dv(k_local),
         tspace=CL.TRIM_GRID)
-    eams, eame, ebms, ebme, act = (x.cpu().numpy() for x in out)
+    eams, eame, ebms, ebme, act = (to_host(x) for x in out)
     return (eams.astype(np.int32), eame.astype(np.int32),
             ebms.astype(np.int32), ebme.astype(np.int32), act)
 

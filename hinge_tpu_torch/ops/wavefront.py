@@ -33,7 +33,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu_torch.device import DeviceError, to_device
+from hinge_tpu_torch.device import DeviceError, to_device, to_host
 from hinge_tpu_torch.ops.band_nw import _check
 
 GAP = 4
@@ -462,7 +462,7 @@ def pack_block(qs, ts, band_tolerance: int = 150):
 def _align_block(qs, ts, band_tolerance, device):
     q, t, m, n, max_d, kb = pack_block(qs, ts, band_tolerance)
     px, py, aligned, d_fin, _, _ = (
-        x.cpu().numpy() for x in wave_align(
+        to_host(x) for x in wave_align(
             *(to_device(a, device) for a in (q, t, m, n)), band_tolerance,
             max_d=max_d, kb=kb))
     npts = 2 * (d_fin + 1)

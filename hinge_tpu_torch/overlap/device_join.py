@@ -45,15 +45,15 @@ CPU tensors.  The other programs are torch ops.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import DeviceError, to_device
+from hinge_tpu_torch.device import DeviceError, to_device, to_host
 from hinge_tpu_torch.ops._build import load_kernels
+from hinge_tpu_torch.utils.log import count, span
 
 # copied from hinge_tpu/overlap/device_join.py (:61-62, :666-674)
 BANDBITS = 12          # band_rel field width in the 32-bit group key
@@ -563,25 +563,6 @@ def _free_bytes(dev: torch.device) -> int:
             - torch.cuda.memory_allocated(dev))
 
 
-class _PhaseClock:
-    """Per-phase wall seconds, CUDA-synchronised, into `stats` (no-op and
-    no syncs when stats is None)."""
-
-    def __init__(self, stats, device):
-        self.stats = stats
-        self.cuda = device.type == "cuda"
-        self.t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.stats is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.stats[name] = self.stats.get(name, 0.0) + (now - self.t)
-        self.t = now
-
-
 def overlap_base_records(
     rs: ReadStore,
     k: int = 15,
@@ -596,15 +577,17 @@ def overlap_base_records(
     block_bases: int = 1 << 23,
     *,
     device,
-    stats: Optional[dict] = None,
 ) -> Optional[OverlapStore]:
     """All-vs-all half-pair base records computed on `device`; None when a
-    gate fails (see join_gate).  `stats`, when given, gathers per-phase
-    seconds (minimizer, index, p1..p4, fetch; CUDA-synchronised), blocks,
-    hits, and p3's accepted anchors in and kept anchors out.  The query minimizers wait on the host between the index
-    build and their block's join, so the device holds one block's at a
-    time, and stay there in `mapper.minimizer_cache(rs)` for the map
-    stage, as the C join leaves them."""
+    gate fails (see join_gate).  Inside a `utils.log.record(...)` each
+    phase is a span (`overlap.minimizer`, `overlap.index`, then one
+    `overlap.p1` .. `overlap.p4` and `overlap.fetch` a block; on CUDA
+    stream seconds when profiled) and the call counts `join.blocks`,
+    `join.hits`, and p3's accepted anchors in (`join.anchors`) and kept
+    anchors out (`join.kept`).  The query minimizers wait on the host
+    between the index build and their block's join, so the device holds
+    one block's at a time, and stay there in `mapper.minimizer_cache(rs)`
+    for the map stage, as the C join leaves them."""
     from hinge_tpu_torch.overlap import mapper as _mapper
 
     if join_gate(rs, k, w, band_width, device=device) is not None:
@@ -613,7 +596,6 @@ def overlap_base_records(
         return _mapper._empty(tspace)
     dev = torch.device(device)
     lens = rs.length.astype(np.int64)
-    clock = _PhaseClock(stats, dev)
 
     # block partition by X length (fwd + rc codes per read), as hinge_tpu
     blocks = []  # (r0, r1, x_len)
@@ -626,69 +608,72 @@ def overlap_base_records(
         cur += xl
     blocks.append((r0, rs.n_reads, cur))
 
-    d_packed = to_device(_pack_codes(rs), dev)
-    d_off = to_device(rs.bases_off.astype(np.int64), dev)
-    d_lens = to_device(lens, dev)
-    host_q, idx_parts = [], []  # a block's (pos, hash, count a stream)
-    for b0, r1, xl in blocks:
-        (mh, mpos, msid), ix = minimizers(d_packed, d_off, d_lens, b0, r1,
-                                          xl, k, w)
-        host_q.append((mpos.to(torch.int32).cpu(), (mh ^ _SIGN).cpu(),
-                       torch.bincount(msid, minlength=2 * (r1 - b0)).cpu()))
-        idx_parts.append(ix)
-    del d_packed, d_off, mh, mpos, msid
-    q_pos, q_hsh, q_cnt = _mapper.cache_minimizers(
-        rs, k, w, *(torch.cat(c).numpy() for c in zip(*host_q)))
-    del host_q
-    q_off = np.concatenate([[0], np.cumsum(q_cnt)])
-    clock.lap("minimizer")
-    idx = [torch.cat(c) for c in zip(*idx_parts)]
-    del idx_parts
-    sh, stid, spos, entry_valid = build_index(*idx, max_bucket)
-    del idx
-    clock.lap("index")
+    with span("overlap.minimizer", dev):
+        d_packed = to_device(_pack_codes(rs), dev)
+        d_off = to_device(rs.bases_off.astype(np.int64), dev)
+        d_lens = to_device(lens, dev)
+        host_q, idx_parts = [], []  # a block's (pos, hash, count a stream)
+        for b0, r1, xl in blocks:
+            (mh, mpos, msid), ix = minimizers(d_packed, d_off, d_lens, b0, r1,
+                                              xl, k, w)
+            host_q.append((to_host(mpos.to(torch.int32)), to_host(mh ^ _SIGN),
+                           to_host(torch.bincount(msid,
+                                                  minlength=2 * (r1 - b0)))))
+            idx_parts.append(ix)
+        del d_packed, d_off, mh, mpos, msid
+        q_pos, q_hsh, q_cnt = _mapper.cache_minimizers(
+            rs, k, w, *(np.concatenate(c) for c in zip(*host_q)))
+        del host_q
+        q_off = np.concatenate([[0], np.cumsum(q_cnt)])
+    with span("overlap.index", dev):
+        idx = [torch.cat(c) for c in zip(*idx_parts)]
+        del idx_parts
+        sh, stid, spos, entry_valid = build_index(*idx, max_bucket)
+        del idx
     if sh.shape[0] == 0:  # every read shorter than k: no seed can hit
         return _mapper._empty(tspace)
 
     stores: List[OverlapStore] = []
     n_hits = n_anchors = n_kept = 0
     for b0, r1, _ in blocks:
-        m0, m1 = q_off[2 * b0], q_off[2 * r1]
-        mh = to_device(q_hsh[m0:m1].view(np.int64), dev) ^ _SIGN
-        mpos = to_device(q_pos[m0:m1], dev).to(_I64)
-        msid = torch.repeat_interleave(
-            torch.arange(2 * (r1 - b0), device=dev),
-            to_device(q_cnt[2 * b0 : 2 * r1], dev), output_size=int(m1 - m0))
-        band_off = torch.div(-(d_lens[b0:r1] - k) + _B30, band_width,
-                             rounding_mode="floor")
-        skey, q_s, t_s = join_hits(sh, stid, spos, entry_valid, mh, mpos,
-                                   msid, b0, band_off, band_width)
-        n_hits += skey.shape[0]
-        clock.lap("p1")
-        a_row, a_q, a_t, row_rid, row_tid, row_strand = chain_bands(
-            skey, q_s, t_s, min_hits)
-        del skey, q_s, t_s
-        clock.lap("p2")
+        with span("overlap.p1", dev):
+            m0, m1 = q_off[2 * b0], q_off[2 * r1]
+            mh = to_device(q_hsh[m0:m1].view(np.int64), dev) ^ _SIGN
+            mpos = to_device(q_pos[m0:m1], dev).to(_I64)
+            msid = torch.repeat_interleave(
+                torch.arange(2 * (r1 - b0), device=dev),
+                to_device(q_cnt[2 * b0 : 2 * r1], dev),
+                output_size=int(m1 - m0))
+            band_off = torch.div(-(d_lens[b0:r1] - k) + _B30, band_width,
+                                 rounding_mode="floor")
+            skey, q_s, t_s = join_hits(sh, stid, spos, entry_valid, mh,
+                                       mpos, msid, b0, band_off, band_width)
+            n_hits += skey.shape[0]
+        with span("overlap.p2", dev):
+            a_row, a_q, a_t, row_rid, row_tid, row_strand = chain_bands(
+                skey, q_s, t_s, min_hits)
+            del skey, q_s, t_s
         nr = row_rid.shape[0]
         if nr == 0:
             continue
-        p3 = thin_rows(a_row, a_q, a_t, nr, k, sub_gap, min_span, min_cnt,
-                       tspace)
-        n_anchors += a_row.shape[0]
-        n_kept += p3[0].shape[0]
-        del a_row, a_q, a_t
-        clock.lap("p3")
-        _, _, _, _, _, Q0, Q1, T0, T1, okr, nb = p3
-        trace = emit_traces(*p3, tspace)
-        del p3
-        clock.lap("p4")
-        host = lambda x: x.cpu().numpy()  # noqa: E731
-        rid, strand, tid = host(row_rid), host(row_strand), host(row_tid)
-        ok = host(okr)
-        q0, q1, t0, t1, nbv = (host(x) for x in (Q0, Q1, T0, T1, nb))
-        acc = np.nonzero(ok)[0]
-        tr = host(trace)[: int(2 * (nbv[acc] - 1).sum())].astype(np.uint16)
-        clock.lap("fetch")
+        with span("overlap.p3", dev):
+            p3 = thin_rows(a_row, a_q, a_t, nr, k, sub_gap, min_span,
+                           min_cnt, tspace)
+            n_anchors += a_row.shape[0]
+            n_kept += p3[0].shape[0]
+            del a_row, a_q, a_t
+        with span("overlap.p4", dev):
+            _, _, _, _, _, Q0, Q1, T0, T1, okr, nb = p3
+            trace = emit_traces(*p3, tspace)
+            del p3
+        with span("overlap.fetch", dev):
+            rid, strand, tid = (to_host(x) for x in
+                                (row_rid, row_strand, row_tid))
+            ok = to_host(okr)
+            q0, q1, t0, t1, nbv = (to_host(x) for x in (Q0, Q1, T0, T1, nb))
+            acc = np.nonzero(ok)[0]
+            tr = to_host(trace)[: int(2 * (nbv[acc] - 1).sum())].astype(
+                np.uint16)
         if len(acc) == 0:
             continue
         rida, strda, tida = rid[acc], strand[acc], tid[acc]
@@ -705,11 +690,10 @@ def overlap_base_records(
             rc=strda, diffs=np.zeros(len(acc), dtype=np.int64),
             tlen=2 * (nbv[acc] - 1),
         ).sort_by_a())
-    if stats is not None:
-        stats["blocks"] = len(blocks)
-        stats["hits"] = n_hits
-        stats["anchors"] = n_anchors
-        stats["kept"] = n_kept
+    count("join.blocks", len(blocks))
+    count("join.hits", n_hits)
+    count("join.anchors", n_anchors)
+    count("join.kept", n_kept)
     if not stores:
         return _mapper._empty(tspace)
     if len(stores) == 1:

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from hinge_tpu_torch.data.overlaps import INT, OverlapStore, ReadStore, revcomp_codes
+from hinge_tpu_torch.utils.log import span
 
 
 def _kmer_hash(codes: np.ndarray, k: int) -> np.ndarray:
@@ -278,16 +279,19 @@ def map_reads_to_targets(
         cache = minimizer_cache(rs)
         pre = cache.get((k, w))
         if pre is None:
-            got = _minimizers_batch(rs.bases, rs.bases_off, k, w,
-                                    both_strands=True)
-            if got is not None:
-                pre = cache_minimizers(rs, k, w, *(a.copy() for a in got))
-    index = None
-    if half_pairs and pre is not None:
-        # all-vs-all: the forward streams double as the index input
-        index = _index_from_minimizers(targets, pre, k, w)
-    if index is None:
-        index = build_index(targets, k, w)
+            with span("map.minimizers"):
+                got = _minimizers_batch(rs.bases, rs.bases_off, k, w,
+                                        both_strands=True)
+                if got is not None:
+                    pre = cache_minimizers(rs, k, w,
+                                           *(a.copy() for a in got))
+    with span("map.index"):
+        index = None
+        if half_pairs and pre is not None:
+            # all-vs-all: the forward streams double as the index input
+            index = _index_from_minimizers(targets, pre, k, w)
+        if index is None:
+            index = build_index(targets, k, w)
 
     def block_slice(lo, hi):
         if pre is None:
@@ -299,33 +303,35 @@ def map_reads_to_targets(
         return (qp_all[off[s0] : off[s1]], qh_all[off[s0] : off[s1]],
                 counts_all[s0:s1])
 
-    if rs.n_reads > query_block:
-        stores = []
-        for lo in range(0, rs.n_reads, query_block):
-            hi = min(lo + query_block, rs.n_reads)
-            sub = ReadStore(
-                length=rs.length[lo:hi],
-                bases_off=(rs.bases_off[lo : hi + 1] - rs.bases_off[lo]),
-                bases=rs.bases[rs.bases_off[lo] : rs.bases_off[hi]],
-            )
-            part = _map_block(index, targets, sub, k, w, min_span, min_hits,
-                              band_width, tspace, rid_base=lo,
-                              half_pairs=half_pairs,
-                              pre_minimizers=block_slice(lo, hi))
-            stores.append(part)
-        out = _concat(stores, tspace)
-    else:
-        out = _map_block(index, targets, rs, k, w, min_span, min_hits,
-                         band_width, tspace, rid_base=0,
-                         half_pairs=half_pairs,
-                         pre_minimizers=block_slice(0, rs.n_reads))
+    with span("map.blocks"):
+        if rs.n_reads > query_block:
+            stores = []
+            for lo in range(0, rs.n_reads, query_block):
+                hi = min(lo + query_block, rs.n_reads)
+                sub = ReadStore(
+                    length=rs.length[lo:hi],
+                    bases_off=(rs.bases_off[lo : hi + 1] - rs.bases_off[lo]),
+                    bases=rs.bases[rs.bases_off[lo] : rs.bases_off[hi]],
+                )
+                part = _map_block(index, targets, sub, k, w, min_span,
+                                  min_hits, band_width, tspace, rid_base=lo,
+                                  half_pairs=half_pairs,
+                                  pre_minimizers=block_slice(lo, hi))
+                stores.append(part)
+            out = _concat(stores, tspace)
+        else:
+            out = _map_block(index, targets, rs, k, w, min_span, min_hits,
+                             band_width, tspace, rid_base=0,
+                             half_pairs=half_pairs,
+                             pre_minimizers=block_slice(0, rs.n_reads))
     if not half_pairs:
         # fill true per-window diffs: DALIGNER consumers size wave arrays
         # from them (see dalign_trace.fill_window_diffs); interpolated
         # traces with diffs=0 crash the reference consensus binary
         from hinge_tpu_torch.ops.dalign_trace import fill_window_diffs
 
-        fill_window_diffs(out, targets, rs)
+        with span("map.diffs"):
+            fill_window_diffs(out, targets, rs)
     return out
 
 
@@ -844,7 +850,6 @@ def overlap_reads(
     tspace: int = 100,
     *,
     device,
-    stats: Optional[dict] = None,
 ) -> OverlapStore:
     """All-vs-all read overlapping: the read set mapped against itself.
 
@@ -855,8 +860,8 @@ def overlap_reads(
     two directions must agree byte-for-byte); trivial self matches (same
     read, forward strand, near-zero diagonal) are dropped.  The half-pair
     base records come from the device join on `device` or from the C join,
-    as `use_device_join(device)` says; `stats`, when given, gathers the
-    device join's (overlap_base_records).
+    as `use_device_join(device)` says; the mirroring is the span
+    `overlap.mirror`.
     """
     if not use_device_join(device):
         targets = [rs.get_bases(i) for i in range(rs.n_reads)]
@@ -864,7 +869,8 @@ def overlap_reads(
             targets, rs, k=k, w=w, min_span=min_span, min_hits=min_hits,
             band_width=band_width, tspace=tspace, half_pairs=True,
         )
-        return dedup_and_mirror(ov, band_width, tspace)
+        with span("overlap.mirror"):
+            return dedup_and_mirror(ov, band_width, tspace)
     from hinge_tpu_torch.overlap import device_join as DJ
 
     gate = DJ.join_gate(rs, k, w, band_width, device=device)
@@ -873,8 +879,9 @@ def overlap_reads(
                          f"({gate}); HINGE_DEVICE_JOIN=0 runs the C join")
     ov = DJ.overlap_base_records(
         rs, k=k, w=w, min_span=min_span, min_hits=min_hits,
-        band_width=band_width, tspace=tspace, device=device, stats=stats)
-    return dedup_and_mirror(ov, band_width, tspace)
+        band_width=band_width, tspace=tspace, device=device)
+    with span("overlap.mirror"):
+        return dedup_and_mirror(ov, band_width, tspace)
 
 
 def dedup_and_mirror(ov: OverlapStore, band_width: int,

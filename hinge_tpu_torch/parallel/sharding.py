@@ -44,7 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu_torch.device import resolve_device, to_device
+from hinge_tpu_torch.device import resolve_device, to_device, to_host
 from hinge_tpu_torch.ops import coverage as C
 
 I32 = torch.int32
@@ -390,7 +390,7 @@ def run_sharded_profiles(
         ne, ne_cut = _record_stats(mesh, shards, r, reads_chunk, reso, cut_off)
         out["ne"].append(ne)
         out["ne_cut"].append(ne_cut)
-    return tuple(mesh.gather_reads(out[k]).cpu().numpy()[:n_reads]
+    return tuple(to_host(mesh.gather_reads(out[k]))[:n_reads]
                  for k in ("cov", "cov_cut", "ne", "ne_cut"))
 
 
@@ -476,7 +476,7 @@ def _flat_outputs(mesh, per_shard, n, chunk):
     """Stack each output over the flat shards and drop the sentinel and
     padding rows: numpy arrays in input order."""
     return tuple(
-        mesh.gather_flat(list(o)).cpu().numpy()[:, :chunk].reshape(-1)[:n]
+        to_host(mesh.gather_flat(list(o)))[:, :chunk].reshape(-1)[:n]
         for o in zip(*per_shard))
 
 
@@ -572,7 +572,7 @@ def run_sharded_matching_position(
         shards.append(CL.matching_position(
             to_device(q_idx[i], dev), to_device(q_pos[i], dev), *args,
             tspace=tspace))
-    res = mesh.gather_flat(shards).cpu().numpy()
+    res = to_host(mesh.gather_flat(shards))
     out = np.zeros(nq, dtype=np.int32)
     for r in range(n_dev):
         m = int(fill[r])
@@ -612,7 +612,7 @@ def run_sharded_hinge_call(
             theta=theta, htl=htl, hbl=hbl, hrut=hrut, hbpt=hbpt,
         )
         per_shard.append((b, s))
-    b, s = (mesh.gather_flat(list(o)).cpu().numpy() for o in zip(*per_shard))
+    b, s = (to_host(mesh.gather_flat(list(o))) for o in zip(*per_shard))
     return b.reshape(-1)[:T], s.reshape(-1)[:T]
 
 
@@ -677,7 +677,7 @@ def run_sharded_wave_align(mesh: Mesh, qs, ts, band_tolerance: int = 150):
             to_device(m[sl], dev), to_device(n[sl], dev), band_tolerance,
             max_d=max_d, kb=kb))
     px, py, aligned, d_fin, _, _ = (
-        mesh.gather_flat(list(o)).cpu().numpy().reshape(len(qs_p), -1)
+        to_host(mesh.gather_flat(list(o))).reshape(len(qs_p), -1)
         for o in zip(*per_shard))
     aligned_h = aligned[:, 0]
     npts = 2 * (d_fin[:, 0] + 1)
@@ -709,4 +709,4 @@ def run_sharded_falcon_tally(mesh: Mesh, rows: np.ndarray, t_len: int):
         cov = torch.zeros(t_len, dtype=I32, device=dev)
         cov.index_add_(0, d[ok].long(), torch.ones_like(d[ok]))
         tables.append(cov)
-    return mesh.psum_all(tables).cpu().numpy().astype(np.int64)
+    return to_host(mesh.psum_all(tables)).astype(np.int64)

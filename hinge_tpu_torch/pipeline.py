@@ -14,8 +14,6 @@ as plain torch on the CPU.
 from __future__ import annotations
 
 import os
-import time
-from typing import Optional
 
 import numpy as np
 
@@ -34,18 +32,18 @@ def assemble(
     trace_dir: str = "",
     overlap_w: int = 12,
     device="cuda",
-    join_stats: Optional[dict] = None,
 ) -> dict:
     """Assemble reads (+ overlaps) into X_consensus.gfa on `device`.
 
     Arguments as for hinge_tpu.pipeline.assemble; trace_dir, when set,
-    wraps the run in a torch profiler trace written there; join_stats,
-    when given, gathers the device join's per-phase stats
-    (device_join.overlap_base_records).  Per-stage wall times accumulate
+    wraps the run in a torch profiler trace written there.  The call is
+    one `utils.log.record("assemble")`: its spans and counters are
+    `utils.log.last_call()` afterwards.  Per-stage wall times accumulate
     in hinge_tpu_torch.utils.log.timings()."""
     from hinge_tpu_torch.config import Config, nominal_config
     from hinge_tpu_torch.device import resolve_device
-    from hinge_tpu_torch.utils.log import get_logger, stage_timer, torch_trace
+    from hinge_tpu_torch.utils.log import (get_logger, record, stage_timer,
+                                           torch_trace)
 
     dev = resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -63,15 +61,19 @@ def assemble(
             logger.info(msg)
 
     with torch_trace(trace_dir):
-        return _assemble_body(
-            fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg, log,
-            stage_timer, overlap_w, dev, join_stats,
-        )
+        with record("assemble") as call:
+            res = _assemble_body(
+                fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
+                log, stage_timer, overlap_w, dev,
+            )
+        log(f"[assemble] total {call.root.wall_s:.1f}s -> {p}_consensus.gfa")
+    return res
 
 
 def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
-                   log, stage_timer, overlap_w, device,
-                   join_stats=None) -> dict:
+                   log, stage_timer, overlap_w, device) -> dict:
+    """The stages, inside an open `utils.log.record(...)`; each log line
+    gives its spans' wall seconds."""
     from hinge_tpu_torch.data.overlaps import str_to_codes
     from hinge_tpu_torch.io.dazz_db import read_db
     from hinge_tpu_torch.io.fasta import correct_head, read_fasta
@@ -86,94 +88,93 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
     from hinge_tpu_torch.stages.filter import run_filter
     from hinge_tpu_torch.stages.layout import load_marked, run_layout
     from hinge_tpu_torch.stages.maximal import run_maximal
+    from hinge_tpu_torch.utils.log import span
 
-    t0 = time.time()
-    if db:
-        rs = read_db(db)
-    elif fasta:
-        rs = read_fasta(fasta)
-    else:
-        raise ValueError("need --fasta or --db")
-    if las:
-        parts = [read_las(las, read_lengths=rs.length)]
-    elif paf:
-        parts = [read_paf(paf)]
-    else:
+    with span("input") as sp_in:
+        if db:
+            rs = read_db(db)
+        elif fasta:
+            rs = read_fasta(fasta)
+        else:
+            raise ValueError("need --fasta or --db")
+        if las:
+            parts = [read_las(las, read_lengths=rs.length)]
+        elif paf:
+            parts = [read_paf(paf)]
+    secs = sp_in.wall_s
+    if not (las or paf):
         # no overlapper output provided: run the built-in all-vs-all
         # overlapper (the device join on CUDA, the C join on the CPU;
         # mapper.use_device_join)
         from hinge_tpu_torch.overlap.mapper import overlap_reads
 
-        t_ovl = time.time()
-        with stage_timer("overlap"):
-            parts = [overlap_reads(rs, w=overlap_w, device=device,
-                                   stats=join_stats)]
+        with stage_timer("overlap") as sp:
+            parts = [overlap_reads(rs, w=overlap_w, device=device)]
+        secs += sp.wall_s
         log(f"[assemble] built-in overlapper: {parts[0].n} overlaps "
-            f"({time.time()-t_ovl:.1f}s)")
+            f"({sp.wall_s:.1f}s)")
     has_db = bool(las) or not paf
     log(f"[assemble] {rs.n_reads} reads, {sum(x.n for x in parts)} overlaps "
-        f"on {device} ({time.time()-t0:.1f}s)")
+        f"on {device} ({secs:.1f}s)")
 
-    t = time.time()
-    with stage_timer("filter"):
+    with stage_timer("filter") as sp:
         fres = run_filter(rs, parts, cfg, out_prefix=p, device=device)
-    log(f"[assemble] filter done ({time.time()-t:.1f}s)")
+    log(f"[assemble] filter done ({sp.wall_s:.1f}s)")
 
-    t = time.time()
     eff_s = fres.maskvec[:, 0].astype(np.int32)
     eff_e = fres.maskvec[:, 1].astype(np.int32)
-    with stage_timer("maximal"):
+    with stage_timer("maximal") as sp:
         mres = run_maximal(rs, parts, cfg, eff_s, eff_e, out_prefix=p,
                            has_db=has_db, device=device)
     log(f"[assemble] maximal: {int(mres.active.sum())}/{rs.n_reads} reads "
-        f"({time.time()-t:.1f}s)")
+        f"({sp.wall_s:.1f}s)")
 
-    t = time.time()
-    with stage_timer("layout"):
+    with stage_timer("layout") as sp:
         lres = run_layout(
             rs, parts, cfg, eff_s, eff_e, mres.active,
             load_marked(p + ".repeat.txt"), load_marked(p + ".hinges.txt"),
             out_prefix=p, filter_prefix=p, has_db=has_db, device=device,
         )
-    log(f"[assemble] layout: {len(lres.edges_hinges)} edges ({time.time()-t:.1f}s)")
+    log(f"[assemble] layout: {len(lres.edges_hinges)} edges ({sp.wall_s:.1f}s)")
 
-    t = time.time()
-    with stage_timer("clip"):
+    with stage_timer("clip") as sp:
         graphs = run_clip(p + ".edges.hinges", p + ".hinge.list", "1", cfg,
                           nanopore=nanopore, write_viz=False)
     G_final = graphs.get("G3", graphs["G2"])
-    log(f"[assemble] clip: {len(G_final)} graph nodes ({time.time()-t:.1f}s)")
+    log(f"[assemble] clip: {len(G_final)} graph nodes ({sp.wall_s:.1f}s)")
 
-    t = time.time()
-    with stage_timer("draft_path"):
+    with stage_timer("draft_path") as sp:
         lines, _ = run_draft_path(
             G_final, rs.length,
             out_edges_list=p + ".edges.list", out_graphml=p + "_draft.graphml",
         )
-    with stage_timer("draft"):
+    secs = sp.wall_s
+    with stage_timer("draft") as sp:
         contigs = run_draft(rs, parts, cfg, mres.active, lines,
                             out_fasta=p + ".draft.fasta", device=device)
-    log(f"[assemble] draft: {len(contigs)} contigs ({time.time()-t:.1f}s)")
+    log(f"[assemble] draft: {len(contigs)} contigs ({secs + sp.wall_s:.1f}s)")
 
-    t = time.time()
     draft_fasta = p + ".draft.fasta"
     cons_fasta = p + ".consensus.fasta"
-    if norevcomp:
-        from hinge_tpu_torch.io.fasta import select_single_strand
+    with span("correct_head") as sp:
+        if norevcomp:
+            from hinge_tpu_torch.io.fasta import select_single_strand
 
-        draft_fasta = p + ".draft.norevcomp.fasta"
-        select_single_strand(p + ".draft.fasta", draft_fasta, mode="even")
-        contigs = contigs[::2]
-        cons_fasta = p + ".norevcomp_consensus.fasta"
-    correct_head(draft_fasta, p + ".draft.pb.fasta",
-                 os.path.join(workdir, "draft_map.txt"))
-    targets = [str_to_codes(seq) for _, seq in contigs]
-    with stage_timer("map"):
+            draft_fasta = p + ".draft.norevcomp.fasta"
+            select_single_strand(p + ".draft.fasta", draft_fasta, mode="even")
+            contigs = contigs[::2]
+            cons_fasta = p + ".norevcomp_consensus.fasta"
+        correct_head(draft_fasta, p + ".draft.pb.fasta",
+                     os.path.join(workdir, "draft_map.txt"))
+        targets = [str_to_codes(seq) for _, seq in contigs]
+    secs = sp.wall_s
+    with stage_timer("map") as sp:
         aln = map_reads_to_targets(targets, rs)
-    with stage_timer("consensus"):
+    secs += sp.wall_s
+    with stage_timer("consensus") as sp:
         cons = run_consensus(contigs, rs, aln, cfg, out_fasta=cons_fasta,
                              device=device)
-    log(f"[assemble] consensus: {len(cons)} contigs ({time.time()-t:.1f}s)")
+    log(f"[assemble] consensus: {len(cons)} contigs ({secs + sp.wall_s:.1f}s)")
 
     with stage_timer("gfa"):
         gfa_lines = run_gfa(
@@ -181,5 +182,4 @@ def _assemble_body(fasta, paf, db, las, workdir, nanopore, norevcomp, p, cfg,
             cons_fasta,
             out_gfa=p + "_consensus.gfa",
         )
-    log(f"[assemble] total {time.time()-t0:.1f}s -> {p}_consensus.gfa")
     return dict(contigs=cons, draft=contigs, graphs=graphs, gfa=gfa_lines)

@@ -15,7 +15,9 @@ The vote accumulations are scatter-adds over (position, base), done as
 torch ops on the run's device (`ops/consensus_vote.py`) when it is a CUDA
 device, else by the native C vote (numpy without the toolchain);
 HINGE_DEVICE_VOTE=1 / 0 / np forces the device vote / the native vote /
-numpy (`vote_route`).  All three are integer-exact.
+numpy (`vote_route`).  All three are integer-exact.  `run_consensus`'s
+parts are spans (`consensus.rows`, `consensus.vote`, `consensus.emit`,
+summed over contigs; utils/log.py).
 
 Port of `hinge_tpu/stages/consensus.py`, host code carried over: that
 module imports `ops.batch_align` (jax) for a trace-realignment branch its
@@ -36,6 +38,7 @@ from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore, revcomp_codes
 from hinge_tpu_torch.ops import dalign_trace as DT
 from hinge_tpu_torch.ops import myers as MY
 from hinge_tpu_torch.ops.pairs import _libstdcxx_orders
+from hinge_tpu_torch.utils.log import span
 
 GAP = MY.GAP
 
@@ -313,75 +316,79 @@ def run_consensus(
     n_contigs = len(contigs)
     from hinge_tpu_torch.data.overlaps import str_to_codes
 
-    draft_codes = [str_to_codes(seq) for _, seq in contigs]
-
-    order, bounds = sort_alignments(aln, n_contigs)
+    with span("consensus.rows"):
+        draft_codes = [str_to_codes(seq) for _, seq in contigs]
+        order, bounds = sort_alignments(aln, n_contigs)
 
     results: List[Tuple[str, str]] = []
     for ci in range(n_contigs):
-        tmpl = draft_codes[ci]
-        alen = len(tmpl)
-        rows = order[bounds[ci] : bounds[ci + 1]]
-        sel = select_rows(rows, aln, min_len)
-        if not sel:
-            results.append((f"Consensus{ci}", contigs[ci][1]))
-            continue
+        with span("consensus.rows"):
+            tmpl = draft_codes[ci]
+            alen = len(tmpl)
+            rows = order[bounds[ci] : bounds[ci + 1]]
+            sel = select_rows(rows, aln, min_len)
+            if not sel:
+                results.append((f"Consensus{ci}", contigs[ci][1]))
+                continue
 
-        # all alignment rows for this contig in one flat pooled buffer,
-        # batch-built straight from the store columns (vectorized contexts
-        # + window lattice; the per-record add_overlap loop was ~30% of
-        # consensus wall at the 10^5-read scale)
-        sel_arr = np.asarray(sel, np.int64)
-        traced = sel_arr[aln.tlen[sel_arr] > 0]
-        fb_a, fb_b, fb_pos0 = [], [], []
-        for r in sel_arr[aln.tlen[sel_arr] <= 0]:
-            ra, rb = _contig_read_rows(aln, int(r), tmpl, rs, band)
-            fb_a.append(np.asarray(ra, np.uint8))
-            fb_b.append(np.asarray(rb, np.uint8))
-            fb_pos0.append(int(aln.a_start[r]))
-        # exact recoverAlignment+getAlignmentTags rows (ops/dalign_trace.py)
-        flat_a, flat_b, seg_len = DT.align_rows_flat_store(
-            aln, traced, tmpl, rs)
-        pos0 = aln.a_start[traced].astype(np.int64)
-        if fb_a:
-            flat_a = np.concatenate([flat_a] + fb_a)
-            flat_b = np.concatenate([flat_b] + fb_b)
-            seg_len = np.concatenate(
-                [seg_len, np.array([len(x) for x in fb_a], np.int64)])
-            pos0 = np.concatenate([pos0, np.array(fb_pos0, np.int64)])
+            # all alignment rows for this contig in one flat pooled buffer,
+            # batch-built straight from the store columns (vectorized
+            # contexts + window lattice; the per-record add_overlap loop was
+            # ~30% of consensus wall at the 10^5-read scale)
+            sel_arr = np.asarray(sel, np.int64)
+            traced = sel_arr[aln.tlen[sel_arr] > 0]
+            fb_a, fb_b, fb_pos0 = [], [], []
+            for r in sel_arr[aln.tlen[sel_arr] <= 0]:
+                ra, rb = _contig_read_rows(aln, int(r), tmpl, rs, band)
+                fb_a.append(np.asarray(ra, np.uint8))
+                fb_b.append(np.asarray(rb, np.uint8))
+                fb_pos0.append(int(aln.a_start[r]))
+            # exact recoverAlignment+getAlignmentTags rows
+            # (ops/dalign_trace.py)
+            flat_a, flat_b, seg_len = DT.align_rows_flat_store(
+                aln, traced, tmpl, rs)
+            pos0 = aln.a_start[traced].astype(np.int64)
+            if fb_a:
+                flat_a = np.concatenate([flat_a] + fb_a)
+                flat_b = np.concatenate([flat_b] + fb_b)
+                seg_len = np.concatenate(
+                    [seg_len, np.array([len(x) for x in fb_a], np.int64)])
+                pos0 = np.concatenate([pos0, np.array(fb_pos0, np.int64)])
 
         # pooled column vote, fully segment-vectorized in bounded chunks:
         # (pos, base) pairs of every read at once, then ONE bincount per
         # tally per chunk (the per-read Python loop was 54% of consensus
         # wall in the host profile).  On CUDA it runs as device
         # scatter-adds (ops/consensus_vote.py, bit-identical).
-        scores, cov, ins_score, ins_scores = _tallies_dispatch(
-            flat_a, flat_b, seg_len, pos0, alen, device)
+        with span("consensus.vote"):
+            scores, cov, ins_score, ins_scores = _tallies_dispatch(
+                flat_a, flat_b, seg_len, pos0, alen, device)
 
         # emission (consensus.cpp:231-269), vectorized: each draft position
         # emits 0-2 bytes (optional insertion + base-or-deletion); build the
         # two per-position byte columns and compact the used ones
-        lowmask = cov < 3
-        max_base = np.argmax(scores, axis=1)  # first max wins, like the loop
-        ins_emit = (ins_score > cov // 2) & ~lowmask
-        max_ins = np.argmax(ins_scores[:, :4], axis=1)
-        draft_text = contigs[ci][1]
-        draft_bytes = np.frombuffer(draft_text.encode(), dtype=np.uint8)[:alen]
-        upper = np.frombuffer(b"ACGT", dtype=np.uint8)
-        to_lower = draft_bytes | 0x20  # ASCII lowercase
-        col0 = np.where(ins_emit, upper[max_ins], 0).astype(np.uint8)
-        base_byte = np.where(
-            lowmask, to_lower,
-            np.where(max_base < 4, upper[np.minimum(max_base, 3)], 0),
-        ).astype(np.uint8)
-        interleaved = np.empty(2 * alen, dtype=np.uint8)
-        interleaved[0::2] = col0
-        interleaved[1::2] = base_byte
-        out_bytes = interleaved[interleaved != 0]
-        results.append((f"Consensus{ci}", out_bytes.tobytes().decode()))
+        with span("consensus.emit"):
+            lowmask = cov < 3
+            max_base = np.argmax(scores, axis=1)  # first max wins, like the loop
+            ins_emit = (ins_score > cov // 2) & ~lowmask
+            max_ins = np.argmax(ins_scores[:, :4], axis=1)
+            draft_text = contigs[ci][1]
+            draft_bytes = np.frombuffer(draft_text.encode(), dtype=np.uint8)[:alen]
+            upper = np.frombuffer(b"ACGT", dtype=np.uint8)
+            to_lower = draft_bytes | 0x20  # ASCII lowercase
+            col0 = np.where(ins_emit, upper[max_ins], 0).astype(np.uint8)
+            base_byte = np.where(
+                lowmask, to_lower,
+                np.where(max_base < 4, upper[np.minimum(max_base, 3)], 0),
+            ).astype(np.uint8)
+            interleaved = np.empty(2 * alen, dtype=np.uint8)
+            interleaved[0::2] = col0
+            interleaved[1::2] = base_byte
+            out_bytes = interleaved[interleaved != 0]
+            results.append((f"Consensus{ci}", out_bytes.tobytes().decode()))
 
     if out_fasta is not None:
-        with open(out_fasta, "w") as f:
+        with span("consensus.emit"), open(out_fasta, "w") as f:
             for name, seq in results:
                 f.write(f">{name}\n{seq}\n")
     return results

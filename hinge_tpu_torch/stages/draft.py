@@ -1,7 +1,10 @@
 """Copied from hinge_tpu/stages/draft.py: the logic verbatim, the imports
 rewritten to hinge_tpu_torch, and the ladder-window aligner replaced by
 the port's (`_align_ladder_pairs`: the band-NW CUDA kernels on CUDA), which
-the device reaches through `run_draft(..., device=)`.
+the device reaches through `run_draft(..., device=)`.  Its parts are spans
+(`draft.index`, `draft.backbone`, `draft.ladders`, `draft.align`,
+`draft.vote`, `draft.write`; utils/log.py), and the ladder pairs are
+counted (`draft.pairs`, `draft.pairs_identical`).
 
 Stage 5b — draft assembly (`hinge draft`, reference `src/consensus/draft.cpp`).
 
@@ -28,6 +31,7 @@ from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore, revcomp_codes
 from hinge_tpu_torch.ops import dalign_trace as DT
 from hinge_tpu_torch.ops import falcon_vote as FV
 from hinge_tpu_torch.ops import myers as MY
+from hinge_tpu_torch.utils.log import count, span
 
 # code 5 = '$': falcon.c's backtrack can emit the literal '$' placeholder
 # when the best column's best link index exceeds 4 (falcon.c:456-483)
@@ -220,12 +224,13 @@ def draft_assembly_ctg(
         return seq, np.ones(len(seq), bool)
 
     # select the backbone overlap row per edge
-    selected: List[int] = []
-    for (a, ao, b, bo, w) in edges:
-        r = _find_overlap_row(ov, row_lists, a, b, w)
-        if r is None:
-            return None
-        selected.append(r)
+    with span("draft.backbone"):
+        selected: List[int] = []
+        for (a, ao, b, bo, w) in edges:
+            r = _find_overlap_row(ov, row_lists, a, b, w)
+            if r is None:
+                return None
+            selected.append(r)
 
     if two_read:
         seq = rs.get_bases(a0)
@@ -259,216 +264,222 @@ def draft_assembly_ctg(
 
     # all backbone alignment rows in pooled window batches — EXACT
     # recoverAlignment+getAlignmentTags parity (ops/dalign_trace.py)
-    bulk_items = [_row_item_for_edge(ov, rs, selected[idx]) for idx in range(n_bb)]
-    bulk_rows = DT.align_overlap_rows_exact(bulk_items)
+    with span("draft.backbone"):
+        bulk_items = [_row_item_for_edge(ov, rs, selected[idx])
+                      for idx in range(n_bb)]
+        bulk_rows = DT.align_overlap_rows_exact(bulk_items)
 
-    for idx, (a, ao, b, bo, w) in enumerate(edges):
-        r = selected[idx]
-        rowA, rowB = bulk_rows[idx]
-        if ao == 1:
-            # reverse-complement both rows to the contig orientation
-            rowA = _rc_row(rowA)
-            rowB = _rc_row(rowB)
-        rowsA.append(rowA)
-        rowsB.append(rowB)
+    # lanes, waypoints, ladders, templates and the pooled ladder pairs
+    with span("draft.ladders"):
+        for idx, (a, ao, b, bo, w) in enumerate(edges):
+            r = selected[idx]
+            rowA, rowB = bulk_rows[idx]
+            if ao == 1:
+                # reverse-complement both rows to the contig orientation
+                rowA = _rc_row(rowA)
+                rowB = _rc_row(rowB)
+            rowsA.append(rowA)
+            rowsB.append(rowB)
 
-        cur = rs.get_bases(a)
-        if ao == 1:
-            cur = revcomp_codes(cur)
-        nxt = rs.get_bases(b)
-        if bo == 1:
-            nxt = revcomp_codes(nxt)
+            cur = rs.get_bases(a)
+            if ao == 1:
+                cur = revcomp_codes(cur)
+            nxt = rs.get_bases(b)
+            if bo == 1:
+                nxt = revcomp_codes(nxt)
 
-        alen, blen = int(ov.a_len[r]), int(ov.b_len[r])
-        # contig-oriented coords from the forward-strand stored ones
-        # (draft.cpp:304-343)
-        if ao == 0:
-            abpos, aepos = int(ov.a_start[r]), int(ov.a_end[r])
+            alen, blen = int(ov.a_len[r]), int(ov.b_len[r])
+            # contig-oriented coords from the forward-strand stored ones
+            # (draft.cpp:304-343)
+            if ao == 0:
+                abpos, aepos = int(ov.a_start[r]), int(ov.a_end[r])
+            else:
+                abpos, aepos = alen - int(ov.a_end[r]), alen - int(ov.a_start[r])
+            if bo == 0:
+                bbpos, bepos = int(ov.b_start[r]), int(ov.b_end[r])
+            else:
+                bbpos, bepos = blen - int(ov.b_end[r]), blen - int(ov.b_start[r])
+
+            bedges.append(
+                dict(a=a, b=b, abpos=abpos, aepos=aepos, bbpos=bbpos, bepos=bepos,
+                     alen=alen, blen=blen)
+            )
+            breads.append(cur)
+            overhang = nxt
+            len_overhang = blen - bepos - (alen - aepos)
+
+        if 0 < len_overhang < len(overhang):
+            overhang = overhang[len(overhang) - len_overhang :]
         else:
-            abpos, aepos = alen - int(ov.a_end[r]), alen - int(ov.a_start[r])
-        if bo == 0:
-            bbpos, bepos = int(ov.b_start[r]), int(ov.b_end[r])
-        else:
-            bbpos, bepos = blen - int(ov.b_end[r]), blen - int(ov.b_start[r])
+            overhang = np.zeros(0, np.uint8)
 
-        bedges.append(
-            dict(a=a, b=b, abpos=abpos, aepos=aepos, bbpos=bbpos, bepos=bepos,
-                 alen=alen, blen=blen)
-        )
-        breads.append(cur)
-        overhang = nxt
-        len_overhang = blen - bepos - (alen - aepos)
+        mappings = [get_mapping(rowsA[i], rowsB[i]) for i in range(n_bb)]
 
-    if 0 < len_overhang < len(overhang):
-        overhang = overhang[len(overhang) - len_overhang :]
-    else:
-        overhang = np.zeros(0, np.uint8)
+        # base coverage per backbone read (raw read coords — reference quirk:
+        # indexed with contig-oriented positions, draft.cpp:570-587)
+        coverages = []
+        for (a, ao, b, bo, w) in edges:
+            rows = pileup_rows.get(a, np.zeros(0, np.int64))
+            coverages.append(base_coverage(ov, a, rows, int(rs.length[a])))
 
-    mappings = [get_mapping(rowsA[i], rowsB[i]) for i in range(n_bb)]
-
-    # base coverage per backbone read (raw read coords — reference quirk:
-    # indexed with contig-oriented positions, draft.cpp:570-587)
-    coverages = []
-    for (a, ao, b, bo, w) in edges:
-        rows = pileup_rows.get(a, np.zeros(0, np.int64))
-        coverages.append(base_coverage(ov, a, rows, int(rs.length[a])))
-
-    # ---- waypoints / lanes (draft.cpp:398-487) ----
-    lanes: List[List[Tuple[int, int]]] = []
-    trace_pts: List[List[int]] = [[] for _ in range(n_bb)]
-    cur_start_read = 0
-    cur_space = 1
-    cur_offset = 0
-    rmax = -1
-    while cur_start_read < n_bb - 1:
-        currentread = cur_start_read
-        while (
-            bedges[cur_start_read]["abpos"] + cur_space * tspace_draft + cur_offset
-            < bedges[cur_start_read]["aepos"] - edge_safe
-        ):
-            waypoint = bedges[cur_start_read]["abpos"] + tspace_draft * cur_space + cur_offset
-            lane: List[Tuple[int, int]] = []
-            while (
-                bedges[currentread]["abpos"] < waypoint < bedges[currentread]["aepos"]
-            ):
-                trace_pts[currentread].append(waypoint)
-                lane.append((currentread, waypoint))
-                if currentread > rmax:
-                    rmax = currentread
-                off = waypoint - bedges[currentread]["abpos"]
-                if off >= len(mappings[currentread]):
-                    off = len(mappings[currentread]) - 1
-                waypoint = int(mappings[currentread][off]) + bedges[currentread]["bbpos"]
-                currentread += 1
-                if currentread >= n_bb:
-                    break
-            if currentread < n_bb and waypoint < bedges[currentread]["alen"]:
-                lane.append((currentread, waypoint))
-                if currentread > rmax:
-                    rmax = currentread
-            if currentread >= rmax:
-                lanes.append(lane)
-            cur_space += 1
-            currentread = cur_start_read
-        cur_start_read += 1
+        # ---- waypoints / lanes (draft.cpp:398-487) ----
+        lanes: List[List[Tuple[int, int]]] = []
+        trace_pts: List[List[int]] = [[] for _ in range(n_bb)]
+        cur_start_read = 0
         cur_space = 1
-        if not trace_pts[cur_start_read]:
-            cur_offset = 0
-        else:
-            cur_offset = trace_pts[cur_start_read][-1] - bedges[cur_start_read]["abpos"]
+        cur_offset = 0
+        rmax = -1
+        while cur_start_read < n_bb - 1:
+            currentread = cur_start_read
+            while (
+                bedges[cur_start_read]["abpos"] + cur_space * tspace_draft + cur_offset
+                < bedges[cur_start_read]["aepos"] - edge_safe
+            ):
+                waypoint = bedges[cur_start_read]["abpos"] + tspace_draft * cur_space + cur_offset
+                lane: List[Tuple[int, int]] = []
+                while (
+                    bedges[currentread]["abpos"] < waypoint < bedges[currentread]["aepos"]
+                ):
+                    trace_pts[currentread].append(waypoint)
+                    lane.append((currentread, waypoint))
+                    if currentread > rmax:
+                        rmax = currentread
+                    off = waypoint - bedges[currentread]["abpos"]
+                    if off >= len(mappings[currentread]):
+                        off = len(mappings[currentread]) - 1
+                    waypoint = int(mappings[currentread][off]) + bedges[currentread]["bbpos"]
+                    currentread += 1
+                    if currentread >= n_bb:
+                        break
+                if currentread < n_bb and waypoint < bedges[currentread]["alen"]:
+                    lane.append((currentread, waypoint))
+                    if currentread > rmax:
+                        rmax = currentread
+                if currentread >= rmax:
+                    lanes.append(lane)
+                cur_space += 1
+                currentread = cur_start_read
+            cur_start_read += 1
+            cur_space = 1
+            if not trace_pts[cur_start_read]:
+                cur_offset = 0
+            else:
+                cur_offset = trace_pts[cur_start_read][-1] - bedges[cur_start_read]["abpos"]
 
-    if not lanes or not lanes[0]:
-        return None
+        if not lanes or not lanes[0]:
+            return None
 
-    first_start = lanes[0][0][1]
-    last_end = lanes[-1][-1][1]
-    prefix = rs.get_bases(edges[0][0])[:first_start]
-    suffix = rs.get_bases(edges[-1][0])[last_end:]
-    cut_end_eff = int(rs.length[edges[-1][2]]) - cut_end
+        first_start = lanes[0][0][1]
+        last_end = lanes[-1][-1][1]
+        prefix = rs.get_bases(edges[0][0])[:first_start]
+        suffix = rs.get_bases(edges[-1][0])[last_end:]
+        cut_end_eff = int(rs.length[edges[-1][2]]) - cut_end
 
-    # ---- ladders (draft.cpp:538-551) ----
-    # Pass 1: build every ladder and pool all (segment, template) pairs into
-    # one banded batch; Pass 2: FALCON-vote per ladder.
-    ladders: List[List[Tuple[int, int, int]]] = []
-    for i in range(len(lanes) - 1):
-        lane1, lane2 = lanes[i], lanes[i + 1]
-        ladder: List[Tuple[int, int, int]] = []
+        # ---- ladders (draft.cpp:538-551) ----
+        # Pass 1: build every ladder and pool all (segment, template) pairs into
+        # one banded batch; Pass 2: FALCON-vote per ladder.
+        ladders: List[List[Tuple[int, int, int]]] = []
+        for i in range(len(lanes) - 1):
+            lane1, lane2 = lanes[i], lanes[i + 1]
+            ladder: List[Tuple[int, int, int]] = []
+            pos = 0
+            for jj in range(len(lane2)):
+                while pos < len(lane1) - 1 and lane1[pos][0] != lane2[jj][0]:
+                    pos += 1
+                if lane1[pos][0] == lane2[jj][0]:
+                    ladder.append((lane2[jj][0], lane1[pos][1], lane2[jj][1]))
+            ladders.append(ladder)
+
+        # templates: max-min-coverage segment per ladder (draft.cpp:570-587)
+        templates: List[Optional[int]] = []
+        pair_q: List[np.ndarray] = []
+        pair_t: List[np.ndarray] = []
+        pair_owner: List[Tuple[int, int]] = []
+        for li, ladder in enumerate(ladders):
+            if len(ladder) <= 1:
+                templates.append(None)
+                continue
+            mx = 0
+            maxcov = 0
+            for j, (rd, s, e) in enumerate(ladder):
+                seg_cov = coverages[rd][s:e]
+                mincov = int(seg_cov.min()) if len(seg_cov) else 10000
+                if mincov > maxcov:
+                    maxcov = mincov
+                    mx = j
+            templates.append(mx)
+            t_rd, t_s, t_e = ladder[mx]
+            template = breads[t_rd][t_s:t_e]
+            for j, (rd, s, e) in enumerate(ladder):
+                pair_q.append(breads[rd][s:e])
+                pair_t.append(template)
+                pair_owner.append((li, j))
+
+    with span("draft.align"):
+        pair_rows = _align_ladder_pairs(pair_q, pair_t, band, device=device)
+        rows_of: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = dict(
+            zip(pair_owner, pair_rows)
+        )
+
+    with span("draft.vote"):
+        # FALCON vote: one batched tag pass over EVERY ladder row (native C,
+        # incl. the sentinel column draft.cpp:652-659 prepends), then one
+        # batched consensus call (native C core over all windows;
+        # falcon.c:270-520).  The per-row Python tag loop was ~25% of the draft
+        # stage wall at 4.6Mb (49k calls).
+        win_rows: List[Tuple[int, int]] = []  # (ladder, n_rows) per window
+        rows_q: List[np.ndarray] = []
+        rows_t: List[np.ndarray] = []
+        for li, ladder in enumerate(ladders):
+            if len(ladder) <= 1:
+                continue
+            for j in range(len(ladder)):
+                qrow, trow = rows_of[(li, j)]
+                rows_q.append(qrow)
+                rows_t.append(trow)
+            win_rows.append((li, len(ladder)))
+        all_tags = FV.get_align_tags_batch(rows_q, rows_t, sentinel=True)
+        win_tags: List[np.ndarray] = []
+        win_tlen: List[int] = []
+        win_of: List[int] = []
         pos = 0
-        for jj in range(len(lane2)):
-            while pos < len(lane1) - 1 and lane1[pos][0] != lane2[jj][0]:
-                pos += 1
-            if lane1[pos][0] == lane2[jj][0]:
-                ladder.append((lane2[jj][0], lane1[pos][1], lane2[jj][1]))
-        ladders.append(ladder)
+        for li, n_rows in win_rows:
+            t_rd, t_s, t_e = ladder_span = ladders[li][templates[li]]
+            win_tags.append(
+                np.concatenate(all_tags[pos : pos + n_rows])
+                if n_rows else np.zeros((0, 6), np.int32))
+            win_tlen.append((t_e - t_s) + 1)
+            win_of.append(li)
+            pos += n_rows
+        cns_results = FV.get_cns_batch(win_tags, win_tlen, [1] * len(win_tags))
+        cns_of = dict(zip(win_of, cns_results))
 
-    # templates: max-min-coverage segment per ladder (draft.cpp:570-587)
-    templates: List[Optional[int]] = []
-    pair_q: List[np.ndarray] = []
-    pair_t: List[np.ndarray] = []
-    pair_owner: List[Tuple[int, int]] = []
-    for li, ladder in enumerate(ladders):
-        if len(ladder) <= 1:
-            templates.append(None)
-            continue
-        mx = 0
-        maxcov = 0
-        for j, (rd, s, e) in enumerate(ladder):
-            seg_cov = coverages[rd][s:e]
-            mincov = int(seg_cov.min()) if len(seg_cov) else 10000
-            if mincov > maxcov:
-                maxcov = mincov
-                mx = j
-        templates.append(mx)
-        t_rd, t_s, t_e = ladder[mx]
-        template = breads[t_rd][t_s:t_e]
-        for j, (rd, s, e) in enumerate(ladder):
-            pair_q.append(breads[rd][s:e])
-            pair_t.append(template)
-            pair_owner.append((li, j))
+        draft_chunks: List[np.ndarray] = []
+        low_chunks: List[np.ndarray] = []
+        for li, ladder in enumerate(ladders):
+            if len(ladder) == 0:
+                continue
+            if len(ladder) == 1:
+                rd, s, e = ladder[0]
+                draft_chunks.append(breads[rd][s:e])
+                low_chunks.append(np.ones(max(e - s, 0), bool))
+                continue
+            cns, low = cns_of[li]
+            draft_chunks.append(cns)
+            low_chunks.append(low)
 
-    pair_rows = _align_ladder_pairs(pair_q, pair_t, band, device=device)
-    rows_of: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray]] = dict(
-        zip(pair_owner, pair_rows)
-    )
-
-    # FALCON vote: one batched tag pass over EVERY ladder row (native C,
-    # incl. the sentinel column draft.cpp:652-659 prepends), then one
-    # batched consensus call (native C core over all windows;
-    # falcon.c:270-520).  The per-row Python tag loop was ~25% of the draft
-    # stage wall at 4.6Mb (49k calls).
-    win_rows: List[Tuple[int, int]] = []  # (ladder, n_rows) per window
-    rows_q: List[np.ndarray] = []
-    rows_t: List[np.ndarray] = []
-    for li, ladder in enumerate(ladders):
-        if len(ladder) <= 1:
-            continue
-        for j in range(len(ladder)):
-            qrow, trow = rows_of[(li, j)]
-            rows_q.append(qrow)
-            rows_t.append(trow)
-        win_rows.append((li, len(ladder)))
-    all_tags = FV.get_align_tags_batch(rows_q, rows_t, sentinel=True)
-    win_tags: List[np.ndarray] = []
-    win_tlen: List[int] = []
-    win_of: List[int] = []
-    pos = 0
-    for li, n_rows in win_rows:
-        t_rd, t_s, t_e = ladder_span = ladders[li][templates[li]]
-        win_tags.append(
-            np.concatenate(all_tags[pos : pos + n_rows])
-            if n_rows else np.zeros((0, 6), np.int32))
-        win_tlen.append((t_e - t_s) + 1)
-        win_of.append(li)
-        pos += n_rows
-    cns_results = FV.get_cns_batch(win_tags, win_tlen, [1] * len(win_tags))
-    cns_of = dict(zip(win_of, cns_results))
-
-    draft_chunks: List[np.ndarray] = []
-    low_chunks: List[np.ndarray] = []
-    for li, ladder in enumerate(ladders):
-        if len(ladder) == 0:
-            continue
-        if len(ladder) == 1:
-            rd, s, e = ladder[0]
-            draft_chunks.append(breads[rd][s:e])
-            low_chunks.append(np.ones(max(e - s, 0), bool))
-            continue
-        cns, low = cns_of[li]
-        draft_chunks.append(cns)
-        low_chunks.append(low)
-
-    body = np.concatenate(draft_chunks) if draft_chunks else np.zeros(0, np.uint8)
-    low_body = np.concatenate(low_chunks) if low_chunks else np.zeros(0, bool)
-    contig = np.concatenate([prefix, body, suffix, overhang])
-    low = np.concatenate(
-        [np.ones(len(prefix), bool), low_body,
-         np.ones(len(suffix) + len(overhang), bool)]
-    )
-    if cut_start <= len(contig) and cut_end_eff <= len(contig):
-        end = len(contig) - cut_end_eff
-        contig = contig[cut_start:end] if end >= cut_start else contig[cut_start:cut_start]
-        low = low[cut_start : cut_start + len(contig)]
-    return contig, low
+        body = np.concatenate(draft_chunks) if draft_chunks else np.zeros(0, np.uint8)
+        low_body = np.concatenate(low_chunks) if low_chunks else np.zeros(0, bool)
+        contig = np.concatenate([prefix, body, suffix, overhang])
+        low = np.concatenate(
+            [np.ones(len(prefix), bool), low_body,
+             np.ones(len(suffix) + len(overhang), bool)]
+        )
+        if cut_start <= len(contig) and cut_end_eff <= len(contig):
+            end = len(contig) - cut_end_eff
+            contig = contig[cut_start:end] if end >= cut_start else contig[cut_start:cut_start]
+            low = low[cut_start : cut_start + len(contig)]
+        return contig, low
 
 
 def _align_ladder_pairs(pair_q, pair_t, band, *, device):
@@ -492,6 +503,8 @@ def _align_ladder_pairs(pair_q, pair_t, band, *, device):
             rows[k] = (qv, tv)
         else:
             todo.append(k)
+    count("draft.pairs", len(pair_q))
+    count("draft.pairs_identical", len(pair_q) - len(todo))
     if todo:
         qs = [pair_q[k] for k in todo]
         ts = [pair_t[k] for k in todo]
@@ -529,24 +542,25 @@ def run_draft(
     tspace = d.tspace if d.tspace > 0 else 900
     edge_safe = d.edge_safe if d.edge_safe > 0 else 100
     min_cov2 = d.min_cov if d.min_cov > 0 else 10
-    # merge parts, keep only maximal x maximal (draft.cpp:880-913)
-    keep_stores = []
-    for part in parts:
-        keep = maximal[part.a_id] & maximal[part.b_id]
-        keep_stores.append(part.take(np.nonzero(keep)[0]))
-    if len(keep_stores) == 1:
-        ov = keep_stores[0]
-    else:
-        ov = _concat_stores(keep_stores)
+    with span("draft.index"):
+        # merge parts, keep only maximal x maximal (draft.cpp:880-913)
+        keep_stores = []
+        for part in parts:
+            keep = maximal[part.a_id] & maximal[part.b_id]
+            keep_stores.append(part.take(np.nonzero(keep)[0]))
+        if len(keep_stores) == 1:
+            ov = keep_stores[0]
+        else:
+            ov = _concat_stores(keep_stores)
 
-    # per-A-read row lists (las order)
-    row_lists: Dict[int, np.ndarray] = {}
-    order = np.argsort(ov.a_id, kind="stable")
-    bounds = np.searchsorted(ov.a_id[order], np.arange(rs.n_reads + 1))
-    for a in range(rs.n_reads):
-        if bounds[a + 1] > bounds[a]:
-            row_lists[a] = order[bounds[a] : bounds[a + 1]]
-    pileup_rows = row_lists
+        # per-A-read row lists (las order)
+        row_lists: Dict[int, np.ndarray] = {}
+        order = np.argsort(ov.a_id, kind="stable")
+        bounds = np.searchsorted(ov.a_id[order], np.arange(rs.n_reads + 1))
+        for a in range(rs.n_reads):
+            if bounds[a + 1] > bounds[a]:
+                row_lists[a] = order[bounds[a] : bounds[a + 1]]
+        pileup_rows = row_lists
 
     out: List[Tuple[str, str]] = []
     for (name, edges, one_read, two_read, cs, ce) in parse_edges_list(edges_list_path_or_lines):
@@ -558,9 +572,10 @@ def run_draft(
         if res is None:
             continue
         contig, low = res
-        out.append((name.lstrip(">"), codes_to_text(contig, low)))
+        with span("draft.write"):
+            out.append((name.lstrip(">"), codes_to_text(contig, low)))
     if out_fasta is not None:
-        with open(out_fasta, "w") as f:
+        with span("draft.write"), open(out_fasta, "w") as f:
             for name, seq in out:
                 f.write(f">{name}\n{seq}\n")
             if not out:

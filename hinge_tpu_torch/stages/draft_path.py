@@ -1,5 +1,6 @@
 """Copied from hinge_tpu/stages/draft_path.py: the logic verbatim, the imports rewritten to
-hinge_tpu_torch.
+hinge_tpu_torch, and the graphml write in a span (`draft_path.graphml`;
+utils/log.py).
 
 Stage 5a — contig path extraction (`hinge draft-path`).
 
@@ -28,6 +29,7 @@ import networkx as nx
 import numpy as np
 
 from hinge_tpu_torch.data.overlaps import ReadStore
+from hinge_tpu_torch.utils.log import span
 from hinge_tpu_torch.graph.sgraph import rev_node
 
 
@@ -330,5 +332,6 @@ def run_draft_path(
             for ln in lines:
                 f.write(ln + "\n")
     if out_graphml is not None:
-        nx.write_graphml(out_graph, out_graphml)
+        with span("draft_path.graphml"):
+            nx.write_graphml(out_graph, out_graphml)
     return lines, out_graph

@@ -19,7 +19,7 @@ import torch
 
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import to_device, to_host
 from hinge_tpu_torch.ops import coverage as C
 from hinge_tpu_torch.parallel.sharding import run_sharded_profiles, stage_mesh
 
@@ -96,7 +96,7 @@ class _ResidentProfiles:
         for base, hi, _, cov_cut, _, ne_cut in self.chunks:
             r = C.coverage_mask(torch.clamp(cov_cut - min_cov, min=0), ne_cut,
                                 reso=reso)
-            out[:, base:hi] = torch.stack(r).cpu().numpy()[:, : hi - base]
+            out[:, base:hi] = to_host(torch.stack(r))[:, : hi - base]
         return out[0], out[1], out[2], out[3]
 
     def annotation(self, m0, m1, min_cov, n_chunk, nb, f, reso):
@@ -108,21 +108,21 @@ class _ResidentProfiles:
             m1p = np.zeros(CHUNK_READS, np.int32)
             m0p[:span] = m0[base:hi]
             m1p[:span] = m1[base:hi]
-            ann[base:hi] = C.repeat_annotation_mask(
+            ann[base:hi] = to_host(C.repeat_annotation_mask(
                 cov, ne, to_device(m0p, self.device),
                 to_device(m1p, self.device), min_cov, reso=reso,
                 coverage_fraction=f.coverage_frac_repeat_annotation,
                 min_thresh=f.min_repeat_annotation_threshold,
                 max_thresh=f.max_repeat_annotation_threshold,
                 no_hinge_region=f.no_hinge_region,
-            )[:span].cpu().numpy()
+            )[:span])
         return ann
 
     def _download(self, slot, n_chunk, nb):
         out = np.zeros((n_chunk, nb), np.int32)
         for ch in self.chunks:
             base, hi = ch[0], ch[1]
-            out[base:hi] = ch[slot][: hi - base].cpu().numpy()
+            out[base:hi] = to_host(ch[slot][: hi - base])
         return out
 
     def cov_np(self, n_chunk, nb):
@@ -193,8 +193,8 @@ def _device_profiles(ov, sel, r_begin, n_chunk, nb, reso, cut_off, device):
         # clipped profile: start+cutoff events can exceed every end-cutoff
         ne_cut_dev = C.n_entries_from_max_event(
             torch.maximum(me - cut_off, ms + cut_off), cnt, reso)
-        ne[base:hi] = ne_dev[:span].cpu().numpy()
-        ne_cut[base:hi] = ne_cut_dev[:span].cpu().numpy()
+        ne[base:hi] = to_host(ne_dev[:span])
+        ne_cut[base:hi] = to_host(ne_cut_dev[:span])
         chunks.append((base, hi, cov, cov_cut, ne_dev, ne_cut_dev))
     return _ResidentProfiles(chunks, device), ne, ne_cut
 

@@ -34,7 +34,7 @@ import numpy as np
 
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
-from hinge_tpu_torch.device import to_device
+from hinge_tpu_torch.device import to_device, to_host
 from hinge_tpu_torch.ops import classify as CL
 from hinge_tpu_torch.ops.pairs import (
     ProcessedAlignments, _libstdcxx_orders, process_alignments,
@@ -346,12 +346,12 @@ def run_layout(
                 tw, mesh, tspace=CL.TRIM_GRID)
         else:
             dv = lambda a: to_device(a, device)  # noqa: E731
-            pos_b = CL.matching_position(
+            pos_b = to_host(CL.matching_position(
                 dv(ov_rows.astype(np.int32)), dv(pos_a),
                 dv(sub.a_start), dv(sub.a_end), dv(sub.b_start), dv(sub.b_end),
                 dv(sub.rc), dv(tw.npairs), dv(tw.pair_off), dv(tw.cum),
                 tspace=CL.TRIM_GRID,  # reference hardcodes the 100 grid
-            ).cpu().numpy()
+            ))
         slack = lay.matching_hinge_slack
         for qi in range(len(queries)):
             i, k, q, dr, _ = queries[qi]

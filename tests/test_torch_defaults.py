@@ -29,6 +29,7 @@ from hinge_tpu_torch.data import carry
 from hinge_tpu_torch.overlap import device_join as DJ
 from hinge_tpu_torch.overlap import mapper as TM
 from hinge_tpu_torch.stages import consensus as TC
+from hinge_tpu_torch.utils.log import record
 from tests.test_device_join import _assert_stores_equal, _c_base_records
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
@@ -153,10 +154,10 @@ def test_device_join_leaves_the_c_joins_minimizer_cache(via, short_set,
     monkeypatch.setenv("HINGE_DEVICE_JOIN", "1")
     port_rs = carry.read_store_from_arrays(vars(short_set))
     if via == "blocks":
-        stats = {}
-        DJ.overlap_base_records(port_rs, device="cpu", block_bases=1 << 16,
-                                stats=stats)
-        assert stats["blocks"] > 5
+        with record("join") as call:
+            DJ.overlap_base_records(port_rs, device="cpu",
+                                    block_bases=1 << 16)
+        assert call.counters["join.blocks"] > 5
     else:
         TM.overlap_reads(port_rs, device="cpu")
     got = TM.minimizer_cache(port_rs)[(K, W)]

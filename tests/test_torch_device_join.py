@@ -18,6 +18,7 @@ from hinge_tpu.overlap import mapper as M
 from hinge_tpu_torch.data import carry
 from hinge_tpu_torch.overlap import device_join as DJ
 from hinge_tpu_torch.overlap import mapper as TM
+from hinge_tpu_torch.utils.log import record
 from tests.test_device_join import _assert_stores_equal, _c_base_records
 
 
@@ -62,9 +63,9 @@ def test_device_join_matches_c_join(workload, sim_mid, sim_repeat):
         kw["block_bases"] = max(2 * int(rs.length.sum()) // 5, 1 << 16)
     ref = _c_base_records(rs)
     assert ref.n > 50
-    stats = {}
-    got = DJ.overlap_base_records(_port(rs), device="cpu", stats=stats, **kw)
-    assert stats["blocks"] >= (5 if workload == "five_blocks" else 1)
+    with record("join") as call:
+        got = DJ.overlap_base_records(_port(rs), device="cpu", **kw)
+    assert call.counters["join.blocks"] >= (5 if workload == "five_blocks" else 1)
     _assert_stores_equal(got, ref)
 
 

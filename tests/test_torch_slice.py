@@ -129,7 +129,11 @@ def test_cli_assemble_on_cpu(tmp_path, capsys):
     assert main(["assemble", "--fasta", fasta, "--las", las, "--workdir",
                  str(wd), "--device", "cpu", "--timings"]) == 0
     assert (wd / "asm.consensus.fasta").stat().st_size > 1000
-    assert "[timing] draft:" in capsys.readouterr().out
+    out = "\n" + capsys.readouterr().out
+    for line in ("[timing] assemble: ", "[timing]   draft: ",
+                 "[timing]     draft.vote: ", "[timing]   consensus: ",
+                 "[timing] counter draft.pairs: "):
+        assert "\n" + line in out
 
 
 def test_cli_assemble_fasta_only_device_switches(tmp_path, monkeypatch):
