@@ -15,14 +15,15 @@ every assemble() and consensus verb below takes the device vote:
 1. device  — a CUDA card must be present; prints its name and the
              `nvidia-smi` name/power-limit line;
 2. build   — nvcc builds the kernels from hinge_tpu_torch/csrc;
-3. kernels — band_fill and row_traceback on 2048 seeded windows
+3. kernels — band_fill, row_traceback and emit_rows (K2e, the rows
+             from row_traceback's records) on 2048 seeded windows
              (700-1100 bp, 1-15% error, plus edge cases), all-left
              traceback rows, traceback rows of arbitrary int8 codes and
              two 30 kb windows (whose costs would pass 16 bits without
              the fill's rebase) must be bit-equal to their plain torch
              twins on the same CUDA tensors; prints kernel, previous kernel and twin times (CUDA
-             events) with each kernel's bound, and both kernels' time
-             per 2048 windows at 2048, 4096 and 8192 windows per launch.
+             events, 10 calls) with each kernel's bound, and K1's and K2's
+             time per 2048 windows at 2048, 4096 and 8192 windows per launch.
              The previous kernels (commit PARENT, before the redesign)
              are built from git history or from `--parent DIR`, and are
              left out when neither has them;
@@ -30,7 +31,7 @@ every assemble() and consensus verb below takes the device vote:
              tests/golden/ files byte for byte;
 5. real size — assemble() on a simulated 4.6 Mb genome at 30x with 2%
              read errors (reads + .las overlaps), which must run through
-             both kernels and yield a contig >= 0.9 of the genome; prints
+             the three band-NW kernels and yield a contig >= 0.9 of the genome; prints
              stage times and peak device memory.  Then its largest band-NW
              block (the launch size and the lengths of the main path) is
              checked and timed as in phase 3;
@@ -61,8 +62,8 @@ every assemble() and consensus verb below takes the device vote:
              records; prints both times;
 7. fasta only — assemble() from the reads alone with HINGE_DEVICE_JOIN
              and HINGE_DEVICE_VOTE unset, which on cuda must run the device
-             join, the device vote (their launch counters), K4 and both
-             band-NW kernels
+             join, the device vote (their launch counters), K4 and the
+             three band-NW kernels
              and yield a contig >= 0.9 of the genome; the consensus stage
              rerun on the same draft with HINGE_DEVICE_VOTE=0 (the native
              C vote) must write a byte-equal X.consensus.fasta;
@@ -70,7 +71,7 @@ every assemble() and consensus verb below takes the device vote:
              track (so the filter's QV mask runs on the card) and its
              reads.las, through the per-stage verbs of hinge_tpu_torch.cli
              in this process with --device cuda: filter, maximal, layout,
-             clip, draft-path, draft (which must launch both kernels),
+             clip, draft-path, draft (which must launch the three band-NW kernels),
              correct-head, map, consensus, gfa.  The draft verb again in a
              fresh `python -m hinge_tpu_torch.cli` process must write a
              byte-equal FASTA without rebuilding the kernels; condense,
@@ -118,8 +119,8 @@ every assemble() and consensus verb below takes the device vote:
              cuda with the demo ini: every file written before the draft
              stage must equal the manifest's, and draft -> gfa again under
              HINGE_PARITY_ALIGN=1 too (graphml by networkx's ElementTree
-             serializer on both sides); both kernels must run and be
-             bit-equal to their twins on the draft's largest block, the
+             serializer on both sides); the three band-NW kernels must run
+             and be bit-equal to their twins on the draft's largest block, the
              final graph (G3) must hold a hinged edge, matching_position must get
              queries on cuda, and 500 bp probes every 20 kb of each
              chromosome must be >= 0.9 found in the default-switch
@@ -140,8 +141,8 @@ every assemble() and consensus verb below takes the device vote:
              and whose band-NW kernel rows must equal the plain twins'
              rows; (c) the draft A/B on phase 5's reads and .las (the
              verbs through draft-path, then each arm in a child process),
-             whose band-NW arm must launch both K1 and K2 and whose C arm
-             must launch neither.  Each result is printed as a JSON line.
+             whose band-NW arm must launch K1, K2 and K2e and whose C arm
+             must launch none of them.  Each result is printed as a JSON line.
 
 Then a JSON line of the ported device programs' times, a JSON line of
 kernel summaries (times on phase 5's largest block, bound, share,
@@ -175,13 +176,15 @@ KERNELS = {
                   "hinge_tpu/ops/pallas_band_nw.py:88"),
     "row_traceback": ("hinge_tpu_torch/csrc/row_traceback.cu",
                       "hinge_tpu/ops/pallas_band_nw.py:231"),
+    "emit_rows": ("hinge_tpu_torch/csrc/emit_rows.cu",
+                  "hinge_tpu/ops/pallas_band_nw.py:307 (_emit_rowrec, host numpy)"),
     "wave_align": ("hinge_tpu_torch/csrc/wave_align.cu",
                    "hinge_tpu/ops/wavefront.py:75"),
     "thin_rows": ("hinge_tpu_torch/csrc/thin_rows.cu",
                   "hinge_tpu/overlap/device_join.py:475"),
 }
 #: the kernels phases 3 and 5 check and time (K3 is phase 9's)
-BAND_NW = ("band_fill", "row_traceback")
+BAND_NW = ("band_fill", "row_traceback", "emit_rows")
 #: phase 6's cut reads: fewer than k = 15 bases, 1 to w-1 = 11 k-mers,
 #: one window (k + w = 27 is the shortest read hinge_tpu's join takes)
 SHORT_LENS = (5, 14, 15, 16, 20, 25, 26)
@@ -346,6 +349,18 @@ def fill_bound(m, n, mrows):
     cells = B * mrows * BN_BW
     nbytes = int(m.sum()) + int(n.sum()) + 8 * B + cells
     return _bound(nbytes, FILL_OPS_PER_CELL * cells, INT16_OPS_S)
+
+
+def emit_bound(m, n, total):
+    """Least time for emit_rows on these records: of each window, its
+    rows' cnt, mv0 and q bytes, its t bytes and its lengths and j_rem (12
+    bytes) read once, its q and t rows (total columns each, all windows)
+    and its base written once.  Bytes bound it: its operations are a scan
+    over the rows and a few adds a column."""
+    B = int(m.numel())
+    nbytes = (3 * int(m.sum()) + int(n.sum()) + 12 * B + 2 * total
+              + 8 * (B + 2))
+    return _bound(nbytes, 0, INT32_OPS_S)
 
 
 #: K4's bytes: an anchor's q and t read and a kept anchor's (q, t, row)
@@ -637,9 +652,10 @@ def _pack(qs, ts, dev):
 
 
 def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
-    """Both kernels bit-equal to their twins on one block, then the times
-    of the kernels, the previous kernels (when built) and the twins, CUDA events
-    on the same tensors.  Returns (errors, times) keyed by kernel."""
+    """The three band-NW kernels bit-equal to their twins on one block,
+    then the times of the kernels, the previous K1/K2 (when built) and the
+    twins, CUDA events on the same tensors.  Returns (errors, times)
+    keyed by kernel."""
     from hinge_tpu_torch.ops import band_nw as BN
 
     moves = BN.band_fill(q, t, m, n, mrows=mrows)
@@ -657,7 +673,18 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
         if not torch.equal(g, w):
             raise AssertionError(f"{tag}: row_traceback {name} differs from its twin")
     tb_err = _max_abs_err(tb, tb_ref)
-    times = {"band_fill": {}, "row_traceback": {}}
+    # K2e on those records and the flat bases the main path sends up
+    eargs = (*tb, m, n, _flat(q, m), _flat(t, n))
+    meta, rows = BN.emit_rows(*eargs)
+    emit_ref = BN.emit_rows_ref(*eargs)
+    torch.cuda.synchronize()
+    total = int(emit_ref[0][-2])
+    emitted = (meta, rows[:2 * total])
+    if not all(torch.equal(g, w) for g, w in zip(emitted, emit_ref)):
+        raise AssertionError(f"{tag}: emit_rows differs from its twin")
+    emit_err = _max_abs_err(emitted, emit_ref)
+    del meta, rows, emitted, emit_ref
+    times = {"band_fill": {}, "row_traceback": {}, "emit_rows": {}}
     for rnd in range(2):  # kernel, previous, previous, kernel
         order = ("new", "prev") if rnd == 0 else ("prev", "new")
         for who in order:
@@ -671,6 +698,9 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
                 else (lambda: parent.traceback(moves, m, n))
             times["band_fill"].setdefault(who, []).append(_cuda_ms(f, 10))
             times["row_traceback"].setdefault(who, []).append(_cuda_ms(g, 10))
+            if who == "new":
+                times["emit_rows"].setdefault(who, []).append(
+                    _cuda_ms(lambda: BN.emit_rows(*eargs), 10))
     if parent.ok:
         if not torch.equal(parent.fill(q, t, m, n, mrows), moves):
             raise AssertionError(f"{tag}: the previous band_fill differs")
@@ -678,8 +708,11 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
         _cuda_ms(lambda: BN.band_fill_ref(q, t, m, n, mrows), twin_reps)]
     times["row_traceback"]["plain"] = [
         _cuda_ms(lambda: BN.row_traceback_ref(moves, m, n), twin_reps)]
+    times["emit_rows"]["plain"] = [
+        _cuda_ms(lambda: BN.emit_rows_ref(*eargs), twin_reps)]
     bounds = {"band_fill": fill_bound(m, n, mrows),
-              "row_traceback": traceback_bound(moves, m, n, tb_ref[2])}
+              "row_traceback": traceback_bound(moves, m, n, tb_ref[2]),
+              "emit_rows": emit_bound(m, n, total)}
     summary = {}
     for name, d in times.items():
         ms = min(d["new"])
@@ -688,11 +721,18 @@ def check_block(tag, q, t, m, n, mrows, parent, twin_reps=2):
                          "prev_ms": min(d["prev"]) if "prev" in d else None,
                          "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
         prev = (f"previous kernel {summary[name]['prev_ms']:.4f} ms ({d['prev']})"
-               if "prev" in d else "previous kernel not measured (sources absent)")
+                if "prev" in d else "no previous kernel" if name == "emit_rows"
+                else "previous kernel not measured (sources absent)")
         log(f"[{tag}] {name}: bit-equal to its twin; kernel {ms:.4f} ms "
             f"({d['new']}), {prev}, plain torch {d['plain'][0]:.4f} ms; bound "
             f"{b_ms:.4f} ms by {b_by}, share {b_ms / ms:.3f}")
-    return {"band_fill": fill_err, "row_traceback": tb_err}, summary
+    return ({"band_fill": fill_err, "row_traceback": tb_err,
+             "emit_rows": emit_err}, summary)
+
+
+def _flat(x, lens):
+    """The windows of padded rows `x` end to end, each cut to its length."""
+    return x[torch.arange(x.shape[1], device=x.device)[None, :] < lens[:, None]]
 
 
 def _check_traceback(what, moves, m, n):

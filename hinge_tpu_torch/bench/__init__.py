@@ -6,7 +6,7 @@ Each module is the twin of one script and keeps its function names:
                         baseline, speed-of-light account, e2e and scaling
                         sections (`python -m hinge_tpu_torch.bench`);
 - `bench_window_dp`  <- bench_window_dp.py: window DP host to host, C
-                        DW_banded vs band-NW (K1/K2) vs the wave (K3);
+                        DW_banded vs band-NW (K1/K2/K2e) vs the wave (K3);
 - `bench_e2e`        <- bench_tpu_e2e.py: assemble() from FASTA, walls
                         per stage, appended to docs/bench_recorded_torch.json;
 - `bench_draft_ab`   <- bench_draft_ab.py: the draft stage under the C

@@ -1,4 +1,4 @@
-"""Port of `bench_draft_ab.py`: the draft stage's whole-stage A/B, the C DW_banded aligner against band-NW (K1/K2), on the card.
+"""Port of `bench_draft_ab.py`: the draft stage's whole-stage A/B, the C DW_banded aligner against band-NW (K1/K2/K2e), on the card.
 
 `prepare` simulates the workload with the port's simulator (or takes a
 read store and a .las), writes X.db (with the qual track) and X.las, and
@@ -8,11 +8,11 @@ verbs take when --config is empty).  Each arm then runs `run_draft` in a
 child process of its own on the device, with one switch pinned:
 
 - dw_banded_c:  HINGE_PARITY_ALIGN=1 (the exact C DW_banded path);
-- band_nw:      HINGE_FAST_ALIGN=1 (band-NW, K1/K2 on CUDA).
+- band_nw:      HINGE_FAST_ALIGN=1 (band-NW, K1/K2/K2e on CUDA).
 
 Each arm reports the draft wall, n_contigs, the longest contig, the
-draft FASTA's sha256 and the K1/K2 launch counts.  On CUDA the C arm
-must launch neither kernel and the band-NW arm both; a failed or
+draft FASTA's sha256 and the K1/K2/K2e launch counts.  On CUDA the C
+arm must launch none of them and the band-NW arm all three; a failed or
 timed-out arm raises.  The default workload is chip_smoke.py phase 5's,
 4.6 Mb at 30x with read errors (the JAX script's reads were error-free,
 on which the draft aligns no window).  --record appends the result to
@@ -42,7 +42,7 @@ ARMS = {
     "dw_banded_c": {"HINGE_PARITY_ALIGN": "1"},
     "band_nw": {"HINGE_FAST_ALIGN": "1"},
 }
-KERNELS = ("band_fill", "row_traceback")
+KERNELS = ("band_fill", "row_traceback", "emit_rows")
 #: seconds a verb or an arm may take before it counts as failed
 TIMEOUT_S = 1200
 
@@ -133,7 +133,7 @@ def run_arm(workdir, pin_env, *, device, out):
 
 def compare(workdir, *, device) -> dict:
     """Both arms on the prepared `workdir`; on CUDA, raises unless the C
-    arm launched no kernel and the band-NW arm both."""
+    arm launched no kernel and the band-NW arm all three."""
     dev = resolve_device(device)
     arms = {name: run_arm(workdir, pin, device=dev, out=f"X.{name}")
             for name, pin in ARMS.items()}
@@ -142,8 +142,8 @@ def compare(workdir, *, device) -> dict:
             raise AssertionError(f"the C arm launched band-NW kernels: "
                                  f"{arms['dw_banded_c']['launches']}")
         if not all(arms["band_nw"]["launches"].values()):
-            raise AssertionError(f"the band-NW arm did not launch both "
-                                 f"kernels: {arms['band_nw']['launches']}")
+            raise AssertionError(f"the band-NW arm did not launch all "
+                                 f"three kernels: {arms['band_nw']['launches']}")
     return arms
 
 

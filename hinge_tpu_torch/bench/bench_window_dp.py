@@ -1,4 +1,4 @@
-"""Port of `bench_window_dp.py`: window-DP throughput host to host, C DW_banded vs band-NW (K1/K2) vs the DW_banded wave (K3).
+"""Port of `bench_window_dp.py`: window-DP throughput host to host, C DW_banded vs band-NW (K1/K2/K2e) vs the DW_banded wave (K3).
 
 The JAX script's windows (800-1000 bp queries, each template a copy with
 5-25% divergence; the same rng draws in the same order, so the same
@@ -6,7 +6,7 @@ windows), each aligner timed from inputs on the host to alignment rows
 on the host, in windows/s with its edit count:
 
 - C DW_banded: `ops/myers.align_exact_batch(qs, ts, 1500)`;
-- band-NW: `ops/band_nw.band_align_batch` on the device (K1/K2 on CUDA);
+- band-NW: `ops/band_nw.band_align_batch` on the device (K1/K2/K2e on CUDA);
 - K3: `ops/wavefront.align_exact_batch_device` on the device.
 
 The device rows are timed twice: the first call (which builds the
@@ -69,16 +69,17 @@ def edits(rows):
 
 @contextlib.contextmanager
 def plain_twins():
-    """band_align_batch with K1/K2's plain torch twins in the kernels'
-    place, on whatever device it is given."""
+    """band_align_batch with K1/K2/K2e's plain torch twins in the
+    kernels' place, on whatever device it is given."""
     from hinge_tpu_torch.ops import band_nw as BN
 
-    kernels = BN.band_fill, BN.row_traceback
-    BN.band_fill, BN.row_traceback = BN.band_fill_ref, BN.row_traceback_ref
+    kernels = BN.band_fill, BN.row_traceback, BN.emit_rows
+    BN.band_fill, BN.row_traceback, BN.emit_rows = (
+        BN.band_fill_ref, BN.row_traceback_ref, BN.emit_rows_ref)
     try:
         yield
     finally:
-        BN.band_fill, BN.row_traceback = kernels
+        BN.band_fill, BN.row_traceback, BN.emit_rows = kernels
 
 
 def _rows_equal(a, b):

@@ -32,6 +32,8 @@ _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "hinge_band_fill": [_VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "hinge_row_traceback": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "hinge_emit_rows": [*[_VP] * 6, _LL, _VP, _LL, _VP, _VP, _VP,
+                        *[_I] * 4, _VP],
     "hinge_wave_align": [_VP, _VP, _LL, _VP, _VP, *[_I] * 7, _LL, _I,
                          *[_VP] * 8],
     "hinge_wave_align_resident": [_I, _I, _LL, _I],

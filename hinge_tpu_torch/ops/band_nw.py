@@ -1,19 +1,23 @@
 """Banded Needleman-Wunsch window aligner on the hand-written CUDA kernels.
 
 Port of `hinge_tpu/ops/pallas_band_nw.py` (its docstring derives the
-regular-access band formulation).  Two kernels, each with a plain torch
-twin in this module:
+regular-access band formulation).  Three kernels, each with a plain
+torch twin in this module:
 
 - `band_fill` (K1, csrc/band_fill.cu; twin `band_fill_ref`): int8 move
   codes (B, mrows, 256), 0 diag, 1 up, 2 left, 3 invalid;
 - `row_traceback` (K2, csrc/row_traceback.cu; twin `row_traceback_ref`):
   per-row left-run counts, terminating moves and the leading left
-  columns.
+  columns;
+- `emit_rows` (K2e, csrc/emit_rows.cu; twin `emit_rows_ref`): the gapped
+  q and t rows of every window from K2's records, end to end in one flat
+  buffer.
 
 A wrapper takes its twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  `band_align_batch` is the dispatch:
-windows the band cannot hold go to the scalar Myers path, the rest are
-sorted by length and aligned in blocks.
+windows the band cannot hold go to the Myers path, the rest are
+sorted by length and aligned in blocks, each going up as one flat buffer
+and coming down as one.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from hinge_tpu_torch.ops.myers import align_full
+from hinge_tpu_torch.ops.myers import align_full_batch
 from hinge_tpu_torch.device import DeviceError, to_device, to_host
 from hinge_tpu_torch.utils.log import count, span
 from hinge_tpu_torch.ops._build import load_kernels
@@ -33,12 +37,12 @@ BW = 256
 HB = BW // 2
 INF = 1 << 24
 I32 = torch.int32
-#: windows per band_fill / row_traceback launch in band_align_batch
+#: windows per band_fill / row_traceback / emit_rows launch in band_align_batch
 MAX_BATCH = 8192
 
 #: kernel launches per wrapper (a launch that compares a kernel with its
 #: twin counts too; callers reset the counts around the run they measure)
-launches = {"band_fill": 0, "row_traceback": 0}
+launches = {"band_fill": 0, "row_traceback": 0, "emit_rows": 0}
 
 
 def _check(name, x, dtype, ndim, device):
@@ -214,54 +218,176 @@ def row_traceback(moves, m, n):
 
 
 # ---------------------------------------------------------------------------
-# emission + dispatch
+# K2e: rows from the traceback's records
+# ---------------------------------------------------------------------------
+
+#: K2e's launch shape: consecutive DP rows a thread, threads a window at
+#: most, and stage bytes a row (q's and t's each) at most
+EMIT_ITEMS = 4
+EMIT_MAX_THREADS = 256
+EMIT_MAX_STAGE = 16384
+
+
+def emit_plan(mrows: int) -> Tuple[int, int]:
+    """K2e's launch shape from the block's longest window (mrows rows):
+    threads a window (a power of two from 32 to 256, EMIT_ITEMS rows each
+    where that covers the window) and the shared-memory stage a row, in
+    bytes: a multiple of 16 that holds the columns of a window of mrows
+    rows against a target up to HB - 2 bases longer, plus 16 for the
+    alignment shift, up to EMIT_MAX_STAGE (longer windows' chunks past it
+    go straight to device memory)."""
+    threads = 32
+    while threads < EMIT_MAX_THREADS and threads * EMIT_ITEMS < mrows:
+        threads *= 2
+    stage = -(-(2 * mrows + HB + 16) // 16) * 16
+    return threads, min(stage, EMIT_MAX_STAGE)
+
+
+def _emit_check(cnts, mv0s, j_rem, m, n, q, t):
+    dev = cnts.device
+    _check("cnts", cnts, torch.uint8, 2, dev)
+    _check("mv0s", mv0s, torch.int8, 2, dev)
+    for name, x in (("j_rem", j_rem), ("m", m), ("n", n)):
+        _check(name, x, I32, 1, dev)
+    _check("q", q, torch.uint8, 1, dev)
+    _check("t", t, torch.uint8, 1, dev)
+    B = cnts.shape[0]
+    if mv0s.shape != cnts.shape or any(
+            x.shape != (B,) for x in (j_rem, m, n)):
+        raise ValueError(
+            f"cnts {tuple(cnts.shape)}, mv0s {tuple(mv0s.shape)}, j_rem / m "
+            f"/ n {[tuple(x.shape) for x in (j_rem, m, n)]}: want (B, mrows) "
+            "twice and (B,)")
+
+
+def emit_rows_ref(cnts, mv0s, j_rem, m, n, q, t):
+    """Plain torch K2e: the alignment rows of a block of windows from K2's
+    records, on any device.
+
+    cnts (B, mrows) uint8, mv0s (B, mrows) int8, j_rem (B,) int32 as
+    `row_traceback` returns them; m, n (B,) int32 the windows' lengths;
+    q, t (uint8, flat) the windows' query and target bases end to end.
+    Window w has cols = j_rem + m + sum(cnt[:m]) columns: j_rem leading
+    left columns, then per DP row r its up/diag column (q[r]; in t a gap
+    where mv0 == 1) followed by cnt[r] left columns (gaps in q); t's bases
+    fill every column that is not an up column, in order.  Returns (meta,
+    rows): meta int64 (B + 2,), meta[w] the window's first column
+    (meta[B] the total) and meta[B + 1] the windows whose records do not
+    fit their lengths (cols - ups != n, j_rem < 0, m outside [0, mrows],
+    bases past q or t), which get no columns; rows uint8 with the q rows
+    at [0, total) and the t rows at [total, 2 total), gap code GAP.
+
+    Replaces host numpy, `hinge_tpu/ops/pallas_band_nw.py::_emit_rowrec`
+    (same rows)."""
+    B, mrows = cnts.shape
+    dev, i64 = cnts.device, torch.int64
+    m64, n64, jr = m.to(i64), n.to(i64), j_rem.to(i64)
+    live = torch.arange(mrows, device=dev)[None, :] < m64[:, None]
+    cnt = torch.where(live, cnts.to(i64), 0)
+    up = live & (mv0s == 1)
+    cols = jr + m64 + cnt.sum(1)
+    mq, nt = m64.clamp(min=0), n64.clamp(min=0)
+    qoff, toff = torch.cumsum(mq, 0) - mq, torch.cumsum(nt, 0) - nt
+    bad = ((m64 < 0) | (m64 > mrows) | (n64 < 0) | (jr < 0)
+           | (cols - up.sum(1) != n64) | (qoff + mq > q.numel())
+           | (toff + nt > t.numel()))
+    cols = torch.where(bad, 0, cols)
+    meta = torch.zeros(B + 2, dtype=i64, device=dev)
+    meta[1:B + 1] = torch.cumsum(cols, 0)
+    meta[B + 1] = bad.sum()
+    total = int(meta[B])
+    rows = torch.full((2 * total,), GAP, dtype=torch.uint8, device=dev)
+
+    # a record a live row of a window that fits, in (window, row) order
+    live &= ~bad[:, None]
+    wid, r = live.nonzero(as_tuple=True)
+    seg = cnt + 1
+    seg_w = torch.where(live, seg, 0).sum(1)
+    excl = torch.cumsum(seg[live], 0) - seg[live]
+    col = (meta[wid] + jr[wid] + excl
+           - (torch.cumsum(seg_w, 0) - seg_w)[wid])
+    rows[col] = q[qoff[wid] + r]
+    tfill = torch.ones(total, dtype=torch.bool, device=dev)
+    tfill[col[up[live]]] = False
+    # every fitting window's t bases, in order
+    nt_ok = torch.where(bad, 0, nt)
+    tw = torch.repeat_interleave(torch.arange(B, device=dev), nt_ok)
+    tpos = (torch.arange(tw.numel(), device=dev)
+            - (torch.cumsum(nt_ok, 0) - nt_ok)[tw])
+    rows[total + tfill.nonzero()[:, 0]] = t[toff[tw] + tpos]
+    return meta, rows
+
+
+def emit_rows(cnts, mv0s, j_rem, m, n, q, t):
+    """Rows on the records' device: K2e (csrc/emit_rows.cu) for CUDA
+    tensors, `emit_rows_ref` for CPU tensors.  Arguments and (meta, rows)
+    as for `emit_rows_ref`; on CUDA, rows has room for 2 (q.numel() +
+    t.numel()) bytes, of which the first 2 meta[B] hold the rows, and
+    nothing waits for the card."""
+    _emit_check(cnts, mv0s, j_rem, m, n, q, t)
+    dev = cnts.device
+    if dev.type == "cpu":
+        return emit_rows_ref(cnts, mv0s, j_rem, m, n, q, t)
+    lib, stream = _launch_on(dev)
+    B, mrows = cnts.shape
+    if B == 0:
+        return (torch.zeros(2, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.uint8, device=dev))
+    meta = torch.empty(B + 2, dtype=torch.int64, device=dev)
+    rows = torch.empty(2 * (q.numel() + t.numel()), dtype=torch.uint8,
+                       device=dev)
+    scratch = torch.empty(3 * B, dtype=torch.int64, device=dev)
+    threads, stage = emit_plan(mrows)
+    with torch.cuda.device(dev):
+        err = lib.hinge_emit_rows(
+            cnts.data_ptr(), mv0s.data_ptr(), j_rem.data_ptr(), m.data_ptr(),
+            n.data_ptr(), q.data_ptr(), q.numel(), t.data_ptr(), t.numel(),
+            scratch.data_ptr(), meta.data_ptr(), rows.data_ptr(), B, mrows,
+            threads, stage, stream)
+    if err:
+        raise DeviceError(f"emit_rows kernel launch failed: cudaError {err}")
+    launches["emit_rows"] += 1
+    return meta, rows
+
+
+def fetch_rows(meta, rows):
+    """(bases, q rows, t rows) on the host from `emit_rows`' output: the
+    window bases (int64, B + 1) and the flat rows, in two copies (meta,
+    then the rows' used bytes).  Raises ValueError when a window's records
+    did not fit its lengths."""
+    head = to_host(meta)
+    B = head.size - 2
+    if head[B + 1]:
+        raise ValueError(f"emit_rows: the traceback records of {head[B + 1]} "
+                         f"of {B} windows do not fit their lengths")
+    total = int(head[B])
+    both = to_host(rows[:2 * total])
+    return head[:B + 1], both[:total], both[total:]
+
+
+# ---------------------------------------------------------------------------
+# dispatch
 # ---------------------------------------------------------------------------
 
 
-def _emit_rowrec(qs, ts, cnts, mv0s, j_rem):
-    """Rows from per-DP-row traceback records, one flat pass over the whole
-    batch.  Forward layout per window: j_rem leading left columns, then per
-    DP row r: the up/diag column followed by cnt[r] left columns.
+def pack_block(qs, ts) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A block of windows as one flat uint8 buffer: m and n (int32, B
+    each), then every query's bases, then every target's; and m, n."""
+    m = np.fromiter(map(len, qs), np.int32, len(qs))
+    n = np.fromiter(map(len, ts), np.int32, len(ts))
+    buf = np.concatenate([m.view(np.uint8), n.view(np.uint8), *qs, *ts],
+                         dtype=np.uint8, casting="unsafe")
+    return buf, m, n
 
-    Host numpy, carried over unchanged from
-    `hinge_tpu/ops/pallas_band_nw.py::_emit_rowrec` (that module imports
-    jax)."""
-    B = len(qs)
-    ms = np.array([len(q) for q in qs], np.int64)
-    cnt_sum = np.array(
-        [int(cnts[w, : ms[w]].astype(np.int64).sum()) for w in range(B)],
-        np.int64)
-    jr = j_rem.astype(np.int64)
-    cols_w = jr + ms + cnt_sum
-    base = np.zeros(B + 1, np.int64)
-    np.cumsum(cols_w, out=base[1:])
-    q_flat = np.full(int(base[-1]), GAP, np.uint8)
-    t_flat = np.full(int(base[-1]), GAP, np.uint8)
-    tfill = np.ones(int(base[-1]), bool)
 
-    # per-(window,row) flat records
-    rowner = np.repeat(np.arange(B), ms)
-    ridx = np.arange(int(ms.sum()), dtype=np.int64)
-    ridx -= np.repeat(np.cumsum(ms) - ms, ms)
-    cnt_f = cnts[rowner, ridx].astype(np.int64)
-    mv0_f = mv0s[rowner, ridx]
-    # column of row r's up/diag cell = base + jr + r + sum(cnt[<r])
-    ccum = np.cumsum(cnt_f)
-    seg0 = ccum[np.cumsum(ms) - ms] - cnt_f[np.cumsum(ms) - ms]
-    ccum_local = ccum - np.repeat(seg0, ms) - cnt_f  # exclusive within window
-    offs = base[rowner] + jr[rowner] + ridx + ccum_local
-    q_bases = np.concatenate(
-        [np.asarray(q, np.uint8) for q in qs]) if ms.sum() else np.zeros(0, np.uint8)
-    q_flat[offs] = q_bases
-    tfill[offs[mv0_f == 1]] = False
-    # t bases fill every remaining column, in order per window
-    t_bases = np.concatenate(
-        [np.asarray(t, np.uint8) for t in ts]) if B else np.zeros(0, np.uint8)
-    t_flat[tfill] = t_bases
-    return [
-        (q_flat[base[w] : base[w + 1]], t_flat[base[w] : base[w + 1]])
-        for w in range(B)
-    ]
+def _padded(flat, lens, width: int) -> torch.Tensor:
+    """(B, width) rows of a flat buffer of windows end to end (lengths
+    `lens`): window w's bases lead row w, and whatever follows them in the
+    buffer fills the rest (K1 and its twin read a window only within its
+    length)."""
+    off = torch.cumsum(lens, 0) - lens
+    idx = off[:, None] + torch.arange(width, device=flat.device)
+    return flat[idx.clamp_(max=max(flat.numel() - 1, 0))]
 
 
 def band_align_batch(
@@ -275,42 +401,49 @@ def band_align_batch(
     windows, consuming both sequences entirely (align_full semantics).
 
     Windows whose length difference the band cannot hold, and empty
-    queries, go to the scalar Myers path; the rest (counted as
+    queries, go to the Myers path (`myers.align_full_batch`: align_full's
+    rows, by the native batch where it builds); the rest (counted as
     `band_nw.pairs`) are sorted by query length and aligned on `device`
     in blocks of at most max_batch, each block in the spans
-    `band_nw.pack` (padding), `.device` (K1/K2), `.fetch` (the row
-    records to the host) and `.emit` (`_emit_rowrec`)."""
+    `band_nw.pack` (one flat buffer of the bases and lengths), `.device`
+    (the buffer up, K1, K2 and K2e), `.fetch` (the window bases and the
+    flat rows down) and `.emit` (cutting the rows into per-window views).
+    `band_nw.rows_on_card` counts the windows whose rows the card made
+    (0 on the CPU, where the twins run)."""
     out: List = [None] * len(qs)
-    todo = []
+    todo, wide = [], []
     for i in range(len(qs)):
         if abs(len(qs[i]) - len(ts[i])) >= HB - 1 or len(qs[i]) == 0:
-            out[i] = align_full(qs[i], ts[i])
+            wide.append(i)
         else:
             todo.append(i)
+    for i, rows in zip(wide, align_full_batch([qs[i] for i in wide],
+                                              [ts[i] for i in wide])):
+        out[i] = rows
     order = sorted(todo, key=lambda i: len(qs[i]))
     count("band_nw.pairs", len(order))
+    on_card = torch.device(device).type == "cuda"
     for blk in range(0, len(order), max_batch):
+        sel = order[blk : blk + max_batch]
         with span("band_nw.pack"):
-            sel = order[blk : blk + max_batch]
-            qsel = [qs[i] for i in sel]
-            tsel = [ts[i] for i in sel]
-            m = np.array([len(x) for x in qsel], np.int32)
-            n = np.array([len(x) for x in tsel], np.int32)
-            qc = np.zeros((len(sel), int(m.max())), np.uint8)
-            tc = np.zeros((len(sel), int(n.max())), np.uint8)
-            for w in range(len(sel)):
-                qc[w, : m[w]] = qsel[w]
-                tc[w, : n[w]] = tsel[w]
+            buf, m, n = pack_block([qs[i] for i in sel], [ts[i] for i in sel])
         with span("band_nw.device", device):
-            dm, dn = to_device(m, device), to_device(n, device)
-            moves = band_fill(to_device(qc, device), to_device(tc, device),
-                              dm, dn, mrows=int(m.max()))
+            B, sq = len(sel), int(m.sum())
+            dbuf = to_device(buf, device)
+            dm = dbuf[: 4 * B].view(I32)
+            dn = dbuf[4 * B : 8 * B].view(I32)
+            dq, dt = dbuf[8 * B : 8 * B + sq], dbuf[8 * B + sq :]
+            mrows = int(m.max())
+            moves = band_fill(_padded(dq, dm, mrows), _padded(dt, dn, int(n.max())),
+                              dm, dn, mrows=mrows)
             cnts, mv0s, j_rem = row_traceback(moves, dm, dn)
             del moves  # free this block's moves before the next block's fill
+            meta, rows = emit_rows(cnts, mv0s, j_rem, dm, dn, dq, dt)
         with span("band_nw.fetch"):
-            recs = [to_host(x) for x in (cnts, mv0s, j_rem)]
+            bases, q_rows, t_rows = fetch_rows(meta, rows)
         with span("band_nw.emit"):
-            res = _emit_rowrec(qsel, tsel, *recs)
+            b = bases.tolist()
             for w, i in enumerate(sel):
-                out[i] = res[w]
+                out[i] = (q_rows[b[w] : b[w + 1]], t_rows[b[w] : b[w + 1]])
+        count("band_nw.rows_on_card", B if on_card else 0)
     return out

@@ -131,14 +131,25 @@ def test_row_traceback_ref_on_any_int8_codes():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_band_align_batch_rows(jax_moves):
-    """Port rows equal hinge_tpu's interpreted band_align_batch and the
-    numpy full-DP oracle; band overflow goes to the Myers path."""
+@pytest.fixture(scope="module")
+def jax_rows():
     qs, ts = _windows(1)
     qs[3] = qs[3][:20]  # |m - n| >= 127: the Myers fallback
     ts[3] = np.concatenate([ts[3], ts[3]])
-    want = J.band_align_batch(qs, ts)
-    got = T.band_align_batch(qs, ts, device="cpu", max_batch=13)
+    return qs, ts, J.band_align_batch(qs, ts)
+
+
+@pytest.mark.parametrize("max_batch", [13, 1, T.MAX_BATCH])
+def test_band_align_batch_rows(jax_rows, max_batch):
+    """Port rows equal hinge_tpu's interpreted band_align_batch and the
+    numpy full-DP oracle, in blocks of 13 and of one window and in one
+    block; band overflow goes to the Myers path.  On the CPU the twins
+    make every block's rows: `band_nw.rows_on_card` reads 0."""
+    from hinge_tpu_torch.utils.log import record
+
+    qs, ts, want = jax_rows
+    with record("cpu") as call:
+        got = T.band_align_batch(qs, ts, device="cpu", max_batch=max_batch)
     for w, ((gq, gt), (wq, wt)) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(gq, wq, err_msg=f"window {w}")
         np.testing.assert_array_equal(gt, wt, err_msg=f"window {w}")
@@ -146,6 +157,33 @@ def test_band_align_batch_rows(jax_moves):
         oq, ot = _np_oracle(qs[w], ts[w])
         np.testing.assert_array_equal(got[w][0], oq)
         np.testing.assert_array_equal(got[w][1], ot)
+    assert call.counters["band_nw.pairs"] == len(qs) - 1
+    assert call.counters["band_nw.rows_on_card"] == 0
+
+
+def test_windows_past_the_band_take_align_full_rows():
+    """Windows the band cannot hold (|m - n| >= HB - 1, empty queries)
+    get align_full's rows through the batched Myers path, at draft
+    lengths: long indels, a query inside its target, disjoint ones."""
+    from hinge_tpu_torch.ops.myers import align_full
+
+    rng = np.random.default_rng(9)
+    qs, ts = [], []
+    for gap in (127, 128, 300, 900):
+        q, t = _make_pair(rng, int(rng.integers(900, 2600)), 0.13)
+        cut = int(rng.integers(0, len(q) - gap))
+        qs.append(np.concatenate([q[:cut], q[cut + gap:]]))
+        ts.append(t)
+    t = rng.integers(0, 4, 1500).astype(np.uint8)
+    qs += [t[200:1200], np.zeros(0, np.uint8), rng.integers(0, 4, 400)
+           .astype(np.uint8)]
+    ts += [t, t[:50], rng.integers(0, 4, 1300).astype(np.uint8)]
+    got = T.band_align_batch(qs, ts, device="cpu")
+    for w, (q, t) in enumerate(zip(qs, ts)):
+        assert abs(len(q) - len(t)) >= T.HB - 1 or len(q) == 0
+        wq, wt = align_full(q, t)
+        np.testing.assert_array_equal(got[w][0], wq, err_msg=f"window {w}")
+        np.testing.assert_array_equal(got[w][1], wt, err_msg=f"window {w}")
 
 
 def test_wrappers_validate_arguments():

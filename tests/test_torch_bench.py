@@ -190,7 +190,8 @@ def test_draft_ab_c_arm_equals_in_process_draft(tmp_path, monkeypatch):
     assert set(arms) == {"dw_banded_c", "band_nw"}
     for res in arms.values():
         assert res["n_contigs"] > 0 and res["longest"] > 50_000
-        assert res["launches"] == {"band_fill": 0, "row_traceback": 0}
+        assert res["launches"] == {"band_fill": 0, "row_traceback": 0,
+                                   "emit_rows": 0}
 
     monkeypatch.setenv("HINGE_PARITY_ALIGN", "1")
     rs = read_db(os.path.join(wd, "X.db"))
