@@ -17,6 +17,8 @@ condensations (unseeded RNG in the reference; seeded here).
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import networkx as nx
@@ -48,15 +50,11 @@ def run_clip(
             in_hinges, out_hinges = S.read_hinge_list(f)
 
         S.add_annotation(G, in_hinges, out_hinges)
-        import os
-
         if os.path.isfile(prefix + ".cov.flag"):
             S.add_chimera_flags(G, prefix)
         if os.path.isfile(prefix + ".edges.skipped"):
             S.mark_skipped_edges(G, prefix + ".edges.skipped")
         if mapping_json:
-            import json
-
             from hinge_tpu_torch.graph.groundtruth import add_groundtruth
 
             with open(mapping_json) as f:

@@ -6,7 +6,10 @@ the pileup grids are built and kept on the torch device by
 host logic (coverage estimate, telomere flags, annotation merging, the
 per-part stage-file snapshots) is carried over unchanged.  Writes X.mas
 X.cmas X.coverage.txt X.repeat.txt X.hinges.txt X.cov.flag X.self.flag
-X.homologous.txt X.filtered.fasta, byte-identical to hinge_tpu.
+X.homologous.txt X.filtered.fasta, byte-identical to hinge_tpu.  Hinge
+calling runs in span `filter.hinges`; counters `filter.in_hinges` and
+`filter.out_hinges` count the hinges written to X.hinges.txt
+(utils/log.py).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from hinge_tpu_torch.data.overlaps import OverlapStore, ReadStore
 from hinge_tpu_torch.device import to_device, to_host
 from hinge_tpu_torch.ops import coverage as C
 from hinge_tpu_torch.parallel.sharding import run_sharded_profiles, stage_mesh
+from hinge_tpu_torch.utils.log import count, span
 
 
 @dataclasses.dataclass
@@ -293,9 +297,9 @@ def run_filter(
             for ri in range(n_chunk):
                 i = r_begin + ri
                 a, b = int(msc[ri]), int(mec[ri])
-                span = b - a + 1
+                n_bins = b - a + 1
                 vals = reduced[ri]
-                if span > 20:
+                if n_bins > 20:
                     sc = int(vals[a : a + 10].sum() + 10 * MIN_COV) // 10
                     ec = int(vals[b - 9 : b + 1].sum() + 10 * MIN_COV) // 10
                 else:
@@ -338,10 +342,11 @@ def run_filter(
             repeat_annotation[i] = _merge_annotations(anno, f.repeat_annotation_gap_threshold)
 
         # ---- hinge calling (filter.cpp:838-1070, device op) ----
-        _call_hinges_device(
-            part, nonself, rs, maskvec, cov, ne, r_begin, r_end,
-            repeat_annotation, hinges, f, reso, device,
-        )
+        with span("filter.hinges", device=device):
+            _call_hinges_device(
+                part, nonself, rs, maskvec, cov, ne, r_begin, r_end,
+                repeat_annotation, hinges, f, reso, device,
+            )
 
         # ---- per-part stage-file snapshots (see FilterResult fields) ----
         for i in range(r_begin, r_end + 1):
@@ -352,9 +357,15 @@ def run_filter(
                 body = "".join(f"{p} {t} " for p, t in repeat_annotation[i])
                 repeat_lines.append(f"{i} {body}")
         # reference quirk: the hinges loop is `i < r_end` (skips the last)
+        # counted as written: in-hinges (+1) and out-hinges (-1)
+        kinds = []
         for i in range(r_begin, r_end):
-            body = "".join(f"{p} {t} " for p, t in hinges.get(i, []))
+            called = hinges.get(i, [])
+            body = "".join(f"{p} {t} " for p, t in called)
             hinges_lines.append(f"{i} {body}")
+            kinds += [t for _, t in called]
+        count("filter.in_hinges", kinds.count(1))
+        count("filter.out_hinges", kinds.count(-1))
 
         # ---- coverage.txt lines (filter.cpp:599-602) ----
         if coverage_lines is not None:

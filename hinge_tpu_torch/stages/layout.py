@@ -20,6 +20,11 @@ Pipeline:
      in weight order, overridden by a FORWARD_INTERNAL match landing on an
      active matching hinge when within 2*HINGE_SLACK of the chosen weight.
 
+Steps 2-3 run in span `layout.hinge_graph`; counters
+`layout.hinges_killed` (the filter's hinges that X.hinge.list leaves out)
+and `layout.hinged_edges` (X.edges.hinges lines with hinged flag 1;
+utils/log.py).
+
 Outputs (formats byte-identical to the reference): X.edges.hinges,
 X.edges.hinges2, X.hinge.list, X.killed.hinges, X.hgraph, X.edges.{1,2,
 greedy,skipped}, X.deadends.txt, X.garbage.txt.
@@ -43,9 +48,12 @@ from hinge_tpu_torch.parallel.sharding import (
     run_sharded_matching_position, stage_mesh,
 )
 from hinge_tpu_torch.stages.maximal import _top_k
+from hinge_tpu_torch.utils.log import count, span
 
 FORWARD_TYPES = (CL.FORWARD, CL.FORWARD_INTERNAL)
 BACKWARD_TYPES = (CL.BACKWARD, CL.BACKWARD_INTERNAL)
+#: the match types of a hinged edge (edges.hinges' hinged flag 1)
+INTERNAL_TYPES = (CL.FORWARD_INTERNAL, CL.BACKWARD_INTERNAL)
 
 
 @dataclasses.dataclass
@@ -268,149 +276,151 @@ def run_layout(
             (p, t) for (p, t) in marked_repeats.get(i, []) if (p, t) not in surviving
         ]
 
-    # ---- kill hinges via extension matches (hinging.cpp:1262-1321) ----
-    for m in matches:
-        b_active = active  # alias
-        for i in range(n_read):
-            if not active[i]:
-                continue
-            for q in m.fwd.get(i, []):
-                if not m.pa.active[q]:
+    # ---- hinge graph, steps 2-3: kills, matching hinges, components ----
+    with span("layout.hinge_graph", device=device):
+        # ---- kill hinges via extension matches (hinging.cpp:1262-1321) ----
+        for m in matches:
+            b_active = active  # alias
+            for i in range(n_read):
+                if not active[i]:
                     continue
-                t = int(m.pa.match_type[q])
-                if t in FORWARD_TYPES and active[int(m.store.b_id[m.pa.rows[q]])]:
-                    s = int(m.pa.eff_a_match_start[q])
-                    for h in hinges_vec[i]:
-                        if h[1] == 1 and (
-                            (t == CL.FORWARD_INTERNAL and s < h[0] + lay.kill_hinge_internal)
-                            or (t == CL.FORWARD and s < h[0] - lay.kill_hinge_overlap)
-                        ):
-                            h[2] = 0
-            for q in m.bwd.get(i, []):
-                if not m.pa.active[q]:
-                    continue
-                t = int(m.pa.match_type[q])
-                if t in BACKWARD_TYPES and active[int(m.store.b_id[m.pa.rows[q]])]:
-                    e = int(m.pa.eff_a_match_end[q])
-                    for h in hinges_vec[i]:
-                        if h[1] == -1 and (
-                            (t == CL.BACKWARD_INTERNAL and e > h[0] - lay.kill_hinge_internal)
-                            or (t == CL.BACKWARD and e > h[0] + lay.kill_hinge_overlap)
-                        ):
-                            h[2] = 0
-
-    # ---- hinge graph (hinging.cpp:1365-1640) ----
-    node_id: Dict[Tuple[int, int], int] = {}
-    for i in range(n_read):
-        for k in range(len(hinges_vec[i])):
-            node_id[(i, k)] = len(node_id)
-    uf = _UF(len(node_id))
-    hgraph_lines: List[str] = []
-    new_killed: Dict[int, List[Tuple[int, int]]] = {i: [] for i in range(n_read)}
-
-    # batch all GetMatchingPosition queries per part
-    for m in matches:
-        sub, pa = m.store, m.pa
-        tw = CL.build_trace_walk(sub)
-
-        queries: List[Tuple[int, int, int, int, int]] = []  # (i,k,q,dir) dir 0 fwd
-        for i in range(n_read):
-            if not active[i]:
-                continue
-            nh = len(hinges_vec[i])
-            if nh == 0:
-                continue
-            for k in range(nh):
                 for q in m.fwd.get(i, []):
-                    if pa.active[q]:
-                        t = int(pa.match_type[q])
-                        if t in FORWARD_TYPES and active[int(sub.b_id[pa.rows[q]])]:
-                            queries.append((i, k, q, 0, 0))
+                    if not m.pa.active[q]:
+                        continue
+                    t = int(m.pa.match_type[q])
+                    if t in FORWARD_TYPES and active[int(m.store.b_id[m.pa.rows[q]])]:
+                        s = int(m.pa.eff_a_match_start[q])
+                        for h in hinges_vec[i]:
+                            if h[1] == 1 and (
+                                (t == CL.FORWARD_INTERNAL and s < h[0] + lay.kill_hinge_internal)
+                                or (t == CL.FORWARD and s < h[0] - lay.kill_hinge_overlap)
+                            ):
+                                h[2] = 0
                 for q in m.bwd.get(i, []):
-                    if pa.active[q]:
-                        t = int(pa.match_type[q])
-                        if t in BACKWARD_TYPES and active[int(sub.b_id[pa.rows[q]])]:
-                            queries.append((i, k, q, 1, 0))
-        if not queries:
-            continue
-        qa = np.array(queries, dtype=np.int64)
-        ov_rows = pa.rows[qa[:, 2]]
-        pos_a = np.array([hinges_vec[int(i)][int(k)][0] for i, k in zip(qa[:, 0], qa[:, 1])], dtype=np.int32)
-        mesh = stage_mesh(device)
-        if mesh is not None:
-            # HINGE_SHARDED=1: queries route to the mesh shard owning each
-            # overlap row — equal to the single-device op
-            pos_b = run_sharded_matching_position(
-                ov_rows.astype(np.int32), pos_a,
-                sub.a_start, sub.a_end, sub.b_start, sub.b_end, sub.rc,
-                tw, mesh, tspace=CL.TRIM_GRID)
-        else:
-            dv = lambda a: to_device(a, device)  # noqa: E731
-            pos_b = to_host(CL.matching_position(
-                dv(ov_rows.astype(np.int32)), dv(pos_a),
-                dv(sub.a_start), dv(sub.a_end), dv(sub.b_start), dv(sub.b_end),
-                dv(sub.rc), dv(tw.npairs), dv(tw.pair_off), dv(tw.cum),
-                tspace=CL.TRIM_GRID,  # reference hardcodes the 100 grid
-            ))
-        slack = lay.matching_hinge_slack
-        for qi in range(len(queries)):
-            i, k, q, dr, _ = queries[qi]
-            row = pa.rows[q]
-            rc = int(sub.rc[row])
-            b_id = int(sub.b_id[row])
-            pb = int(pos_b[qi])
-            htype = hinges_vec[i][k][1]
-            req = -htype if rc else htype
-            rev_int = 1 if rc else 0
-            for l, hb in enumerate(hinges_vec[b_id]):
-                if pb - slack < hb[0] < pb + slack:
-                    if req == hb[1]:
-                        uf.union(node_id[(i, k)], node_id[(b_id, l)])
-                        if (dr == 0 and htype == 1) or (dr == 1 and htype == -1):
-                            hgraph_lines.append(
-                                f"{i} {b_id} {hinges_vec[i][k][0]} {hb[0]} 1 {rev_int}"
-                            )
-                        else:
-                            hgraph_lines.append(
-                                f"{b_id} {i} {hb[0]} {hinges_vec[i][k][0]} 1 {rev_int}"
-                            )
-            mt = int(pa.match_type[q])
-            for l, (kp, kt) in enumerate(killed_vec[b_id]):
-                if pb - slack < kp < pb + slack:
-                    if dr == 0:
-                        if req == kt:
-                            if htype == 1:
-                                hgraph_lines.append(
-                                    f"{i} {b_id} {hinges_vec[i][k][0]} {kp} 0 {rev_int}"
-                                )
-                            else:
-                                hgraph_lines.append(
-                                    f"{b_id} {i} {kp} {hinges_vec[i][k][0]} 0 {rev_int}"
-                                )
-                            if mt == CL.FORWARD:
-                                new_killed[i].append((hinges_vec[i][k][0], htype))
-                    else:
-                        if req == kt:
-                            if htype == -1:
-                                hgraph_lines.append(
-                                    f"{i} {b_id} {hinges_vec[i][k][0]} {kp} 0 {rev_int}"
-                                )
-                            else:
-                                hgraph_lines.append(
-                                    f"{b_id} {i} {kp} {hinges_vec[i][k][0]} 0 {rev_int}"
-                                )
-                        # backward quirk: push regardless of req == kt
-                        # (hinging.cpp:1609-1620 is outside the req check)
-                        if mt == CL.BACKWARD:
-                            new_killed[i].append((hinges_vec[i][k][0], htype))
+                    if not m.pa.active[q]:
+                        continue
+                    t = int(m.pa.match_type[q])
+                    if t in BACKWARD_TYPES and active[int(m.store.b_id[m.pa.rows[q]])]:
+                        e = int(m.pa.eff_a_match_end[q])
+                        for h in hinges_vec[i]:
+                            if h[1] == -1 and (
+                                (t == CL.BACKWARD_INTERNAL and e > h[0] - lay.kill_hinge_internal)
+                                or (t == CL.BACKWARD and e > h[0] + lay.kill_hinge_overlap)
+                            ):
+                                h[2] = 0
 
-    # component sizes -> kill small components (hinging.cpp:1644-1675)
-    comp_size: Dict[int, int] = {}
-    for (i, k), nid in node_id.items():
-        comp_size[uf.find(nid)] = comp_size.get(uf.find(nid), 0) + 1
-    for (i, k), nid in node_id.items():
-        if comp_size[uf.find(nid)] < lay.min_connected_component_size:
-            hinges_vec[i][k][2] = 0
+        # ---- hinge graph (hinging.cpp:1365-1640) ----
+        node_id: Dict[Tuple[int, int], int] = {}
+        for i in range(n_read):
+            for k in range(len(hinges_vec[i])):
+                node_id[(i, k)] = len(node_id)
+        uf = _UF(len(node_id))
+        hgraph_lines: List[str] = []
+        new_killed: Dict[int, List[Tuple[int, int]]] = {i: [] for i in range(n_read)}
+
+        # batch all GetMatchingPosition queries per part
+        for m in matches:
+            sub, pa = m.store, m.pa
+            tw = CL.build_trace_walk(sub)
+
+            queries: List[Tuple[int, int, int, int, int]] = []  # (i,k,q,dir) dir 0 fwd
+            for i in range(n_read):
+                if not active[i]:
+                    continue
+                nh = len(hinges_vec[i])
+                if nh == 0:
+                    continue
+                for k in range(nh):
+                    for q in m.fwd.get(i, []):
+                        if pa.active[q]:
+                            t = int(pa.match_type[q])
+                            if t in FORWARD_TYPES and active[int(sub.b_id[pa.rows[q]])]:
+                                queries.append((i, k, q, 0, 0))
+                    for q in m.bwd.get(i, []):
+                        if pa.active[q]:
+                            t = int(pa.match_type[q])
+                            if t in BACKWARD_TYPES and active[int(sub.b_id[pa.rows[q]])]:
+                                queries.append((i, k, q, 1, 0))
+            if not queries:
+                continue
+            qa = np.array(queries, dtype=np.int64)
+            ov_rows = pa.rows[qa[:, 2]]
+            pos_a = np.array([hinges_vec[int(i)][int(k)][0] for i, k in zip(qa[:, 0], qa[:, 1])], dtype=np.int32)
+            mesh = stage_mesh(device)
+            if mesh is not None:
+                # HINGE_SHARDED=1: queries route to the mesh shard owning each
+                # overlap row — equal to the single-device op
+                pos_b = run_sharded_matching_position(
+                    ov_rows.astype(np.int32), pos_a,
+                    sub.a_start, sub.a_end, sub.b_start, sub.b_end, sub.rc,
+                    tw, mesh, tspace=CL.TRIM_GRID)
+            else:
+                dv = lambda a: to_device(a, device)  # noqa: E731
+                pos_b = to_host(CL.matching_position(
+                    dv(ov_rows.astype(np.int32)), dv(pos_a),
+                    dv(sub.a_start), dv(sub.a_end), dv(sub.b_start), dv(sub.b_end),
+                    dv(sub.rc), dv(tw.npairs), dv(tw.pair_off), dv(tw.cum),
+                    tspace=CL.TRIM_GRID,  # reference hardcodes the 100 grid
+                ))
+            slack = lay.matching_hinge_slack
+            for qi in range(len(queries)):
+                i, k, q, dr, _ = queries[qi]
+                row = pa.rows[q]
+                rc = int(sub.rc[row])
+                b_id = int(sub.b_id[row])
+                pb = int(pos_b[qi])
+                htype = hinges_vec[i][k][1]
+                req = -htype if rc else htype
+                rev_int = 1 if rc else 0
+                for l, hb in enumerate(hinges_vec[b_id]):
+                    if pb - slack < hb[0] < pb + slack:
+                        if req == hb[1]:
+                            uf.union(node_id[(i, k)], node_id[(b_id, l)])
+                            if (dr == 0 and htype == 1) or (dr == 1 and htype == -1):
+                                hgraph_lines.append(
+                                    f"{i} {b_id} {hinges_vec[i][k][0]} {hb[0]} 1 {rev_int}"
+                                )
+                            else:
+                                hgraph_lines.append(
+                                    f"{b_id} {i} {hb[0]} {hinges_vec[i][k][0]} 1 {rev_int}"
+                                )
+                mt = int(pa.match_type[q])
+                for l, (kp, kt) in enumerate(killed_vec[b_id]):
+                    if pb - slack < kp < pb + slack:
+                        if dr == 0:
+                            if req == kt:
+                                if htype == 1:
+                                    hgraph_lines.append(
+                                        f"{i} {b_id} {hinges_vec[i][k][0]} {kp} 0 {rev_int}"
+                                    )
+                                else:
+                                    hgraph_lines.append(
+                                        f"{b_id} {i} {kp} {hinges_vec[i][k][0]} 0 {rev_int}"
+                                    )
+                                if mt == CL.FORWARD:
+                                    new_killed[i].append((hinges_vec[i][k][0], htype))
+                        else:
+                            if req == kt:
+                                if htype == -1:
+                                    hgraph_lines.append(
+                                        f"{i} {b_id} {hinges_vec[i][k][0]} {kp} 0 {rev_int}"
+                                    )
+                                else:
+                                    hgraph_lines.append(
+                                        f"{b_id} {i} {kp} {hinges_vec[i][k][0]} 0 {rev_int}"
+                                    )
+                            # backward quirk: push regardless of req == kt
+                            # (hinging.cpp:1609-1620 is outside the req check)
+                            if mt == CL.BACKWARD:
+                                new_killed[i].append((hinges_vec[i][k][0], htype))
+
+        # component sizes -> kill small components (hinging.cpp:1644-1675)
+        comp_size: Dict[int, int] = {}
+        for (i, k), nid in node_id.items():
+            comp_size[uf.find(nid)] = comp_size.get(uf.find(nid), 0) + 1
+        for (i, k), nid in node_id.items():
+            if comp_size[uf.find(nid)] < lay.min_connected_component_size:
+                hinges_vec[i][k][2] = 0
 
     hinge_list_lines = []
     for i in range(n_read):
@@ -418,6 +428,10 @@ def run_layout(
             if active[i] and h[2]:
                 p, t = marked_hinges[i][k]
                 hinge_list_lines.append(f"{i} {p} {t}")
+    # the filter's hinges that hinge.list leaves out: killed, or on a read
+    # the layout does not use
+    count("layout.hinges_killed",
+          sum(len(hinges_vec[i]) for i in range(n_read)) - len(hinge_list_lines))
 
     # ---- layout loop (hinging.cpp:1905-2148) ----
     edges_hinges: List[str] = []
@@ -427,7 +441,7 @@ def run_layout(
     greedy_lines: List[str] = []
     g1_lines: List[str] = []
     g2_lines: List[str] = []
-    n_fwd = n_bwd = 0
+    n_fwd = n_bwd = n_hinged = 0
 
     for m in matches:
         sub, pa = m.store, m.pa
@@ -504,6 +518,7 @@ def run_layout(
                 edges_hinges.append(_print_overlap(sub, pa, chosen))
                 edges_hinges2.append(_print_overlap2(sub, pa, chosen, hinge_pos))
                 n_fwd += 1
+                n_hinged += int(pa.match_type[chosen]) in INTERNAL_TYPES
                 chosen = None
             else:
                 deadends.append(f"{i}\t matches_forward size: {len(m.fwd.get(i, []))}")
@@ -551,8 +566,11 @@ def run_layout(
                 edges_hinges.append(_print_overlap(sub, pa, chosen))
                 edges_hinges2.append(_print_overlap2(sub, pa, chosen, hinge_pos))
                 n_bwd += 1
+                n_hinged += int(pa.match_type[chosen]) in INTERNAL_TYPES
             else:
                 deadends.append(f"{i}\t matches_backward size: {len(m.bwd.get(i, []))}")
+
+    count("layout.hinged_edges", n_hinged)
 
     if out_prefix is not None:
         def _w(name, lines):
@@ -593,7 +611,7 @@ def _print_overlap(sub, pa, q) -> str:
     row = pa.rows[q]
     t = int(pa.match_type[q])
     direction = int(sub.rc[row])
-    hinged = 1 if t in (CL.FORWARD_INTERNAL, CL.BACKWARD_INTERNAL) else -1
+    hinged = 1 if t in INTERNAL_TYPES else -1
     a, b = int(sub.a_id[row]), int(sub.b_id[row])
     length = int(pa.length[q])
     eams, eame = int(pa.eff_a_match_start[q]), int(pa.eff_a_match_end[q])

@@ -35,6 +35,9 @@ def _mib(c, name):
     return n / 2**20 if n is not None else None
 
 
+#: the hinge counters of the filter and the layout
+HINGE_COUNTERS = ("filter.in_hinges", "filter.out_hinges",
+                  "layout.hinges_killed", "layout.hinged_edges")
 #: the quantity of each span or counter that PERF.md §3 names a metric
 #: for, read from a call as the metric would; None where the call lacks it
 QUANTITIES = {
@@ -46,6 +49,8 @@ QUANTITIES = {
     "draft.shortcut_share": lambda c: _share(c, "draft.pairs_identical",
                                              "draft.pairs"),
     "clip.graphml_s": lambda c: c.self_s("clip.graphml"),
+    "filter.hinges_s": lambda c: c.self_s("filter.hinges"),
+    "layout.hinge_graph_s": lambda c: c.self_s("layout.hinge_graph"),
     "map.diffs_s": lambda c: c.self_s("map.diffs"),
     "consensus.rows_s": lambda c: c.self_s("consensus.rows"),
     "consensus.vote_s": lambda c: c.self_s("consensus.vote"),
@@ -119,7 +124,7 @@ def test_call_is_one_span_tree(calls, which):
     assert STAGES | {"input", "correct_head"} <= names
     assert {"overlap.minimizer", "overlap.index", "overlap.p1", "overlap.p2",
             "overlap.p3", "overlap.p4", "overlap.fetch", "overlap.mirror",
-            "clip.graphs",
+            "filter.hinges", "layout.hinge_graph", "clip.graphs",
             "clip.graphml", "draft_path.graphml", "draft.index",
             "draft.backbone", "draft.ladders", "draft.align",
             "band_nw.pack", "band_nw.device", "band_nw.fetch",
@@ -130,6 +135,8 @@ def test_call_is_one_span_tree(calls, which):
     assert parent_of["band_nw.emit"] == "draft.align"
     assert parent_of["draft.vote"] == "draft"
     assert parent_of["overlap.p3"] == "overlap"
+    assert parent_of["filter.hinges"] == "filter"
+    assert parent_of["layout.hinge_graph"] == "layout"
     assert all(sp.stream_s is None for sp in call.spans)  # no CUDA device
 
 
@@ -151,6 +158,7 @@ def test_counters_of_the_call(calls):
     assert 0 < c["band_nw.pairs"] <= c["draft.pairs"] - c["draft.pairs_identical"]
     assert c["join.blocks"] == 1
     assert c["join.hits"] >= c["join.anchors"] >= c["join.kept"] > 0
+    assert min(c[k] for k in HINGE_COUNTERS) >= 0
 
 
 def test_profiled_spans_are_profiler_ranges(calls):
@@ -342,3 +350,40 @@ def test_timing_tree_lines(calls):
     assert not any("stream" in ln for ln in lines)
     assert float(lines[0].split()[1][:-1]) == pytest.approx(
         calls[0].root.wall_s, abs=1e-3)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_hinge_spans_and_counters(cuda_device, tmp_path):
+    """On the card (device join, K4, the device hinge calls): the hinge
+    spans sit in their stages with stream seconds under the profiler, and
+    the hinge counters equal the CPU's C-join call's, on the rrn workload
+    (tests/torch_golden_repeats.py) with its 3 kb reads."""
+    from tests import torch_golden_repeats as GR
+
+    _, _, rs, _ = simulate(GR.rrn_params(SimParams, "unbridged"))
+    fasta = str(tmp_path / "reads.fasta")
+    write_fasta(fasta, ((rs.names[i], rs.get_seq(i)) for i in range(rs.n_reads)))
+    got = {}
+    for dev in ("cpu", cuda_device):
+        prof = torch.profiler.profile()
+        with prof:
+            assemble(fasta=fasta, workdir=str(tmp_path / str(dev)),
+                     device=dev, log=lambda *a: None)
+        got[str(dev)] = L.last_call()
+    cpu, card = got["cpu"], got[str(cuda_device)]
+    assert {k: card.counters[k] for k in HINGE_COUNTERS} == {
+        k: cpu.counters[k] for k in HINGE_COUNTERS}
+    assert card.counters["layout.hinged_edges"] >= 1
+    spans = {sp.id: sp for sp in card.spans}
+    for name, stage in (("filter.hinges", "filter"),
+                        ("layout.hinge_graph", "layout")):
+        got = card.named(name)
+        assert got and all(spans[sp.parent].name == stage for sp in got)
+        assert card.stream_s(name) is not None and card.stream_s(name) >= 0

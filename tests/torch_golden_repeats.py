@@ -1,6 +1,6 @@
 """The repeat path's workloads, golden files and manifest, port side.
 
-Two workloads take HINGE's repeat path (hinged reads, matching hinges,
+Three workloads take HINGE's repeat path (hinged reads, matching hinges,
 hinged edges in the clip graphs):
 
 - case (a), tests/test_repeat_resolution.py's: a 300 kb circular genome
@@ -13,9 +13,12 @@ hinged edges in the clip graphs):
   errors.  tests/golden_repeats/yeast_w303.json is hinge_tpu's manifest
   of it: the sha256 of the inputs and of every file assemble() writes
   with the demo's ini under HINGE_PARITY_ALIGN=1 (graphml by networkx's
-  ElementTree serializer, etree_graphml).
+  ElementTree serializer, etree_graphml);
+- "rrn": a 150 kb circle with a seven-copy 5 kb repeat family, E. coli
+  K-12's rrn operons at a thirtieth of its length (tests/test_torch_rrn.py,
+  no golden files).
 
-tests/make_golden_repeats.py writes both with hinge_tpu.  This module
+tests/make_golden_repeats.py writes the first two with hinge_tpu.  This module
 imports neither jax nor hinge_tpu, so chip_smoke.py can use it on the
 card; the functions that make the parameters take the SimParams class,
 so one definition serves both packages' simulators.
@@ -140,6 +143,30 @@ def yeast_params(SimParams):
         telomere_cross_cap=900, extra_reads=extra, repeats=yeast_repeats(),
         coverage=30.0, mean_read_len=8_000, std_read_len=1_600,
         min_read_len=500, seed=0, **READ_ERRORS)
+
+
+#: the rrn workload: its circle, and its copies' length, source and six
+#: destinations (about as far apart as E. coli's, but one gap 13 kb)
+RRN_GENOME, RRN_LEN = 150_000, 5_000
+RRN_SRC, RRN_DST = 100_000, (8_000, 30_000, 52_000, 74_000, 122_000, 140_000)
+#: (mean, sd) read lengths: the E. coli cells' 8 kb reads span a copy,
+#: 3 kb reads do not
+RRN_READS = {"bridged": (8_000, 2_500), "unbridged": (3_000, 800)}
+
+
+def rrn_params(SimParams, reads="bridged", seed=5):
+    """The rrn workload as `SimParams` (either package's) at 30x."""
+    mean, sd = RRN_READS[reads]
+    return SimParams(
+        genome_len=RRN_GENOME, circular=True, coverage=30.0,
+        mean_read_len=mean, std_read_len=sd, min_read_len=500,
+        repeats=tuple((RRN_SRC, d, RRN_LEN) for d in RRN_DST), seed=seed,
+        **READ_ERRORS)
+
+
+def rrn_copies():
+    """The rrn workload's seven copies, (start, end) on the circle."""
+    return [(s, s + RRN_LEN) for s in (RRN_SRC,) + RRN_DST]
 
 
 def params_record(p) -> dict:
