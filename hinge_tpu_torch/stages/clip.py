@@ -1,6 +1,9 @@
 """Copied from hinge_tpu/stages/clip.py: the logic verbatim, the imports rewritten to
 hinge_tpu_torch, and the graph work and each graphml write in spans
-(`clip.graphs`, `clip.graphml`; utils/log.py).
+(`clip.graphs`, `clip.graphml`; utils/log.py).  It differs from hinge_tpu's
+in logic but not in output: the graphml files are written by the port's own
+serializer (io/graphml.py), which writes the bytes `nx.write_graphml` writes
+on the same host.
 
 Stage 4 — graph pruning & clipping (`hinge clip` / `clip-nanopore`).
 
@@ -21,16 +24,15 @@ import json
 import os
 from typing import Optional
 
-import networkx as nx
-
 from hinge_tpu_torch.config import Config
 from hinge_tpu_torch.graph import sgraph as S
+from hinge_tpu_torch.io import graphml
 from hinge_tpu_torch.utils.log import span
 
 
 def _write_graphml(G, path: str) -> None:
     with span("clip.graphml"):
-        nx.write_graphml(G, path)
+        graphml.write_graphml(G, path)
 
 
 def run_clip(

@@ -1,6 +1,8 @@
 """Copied from hinge_tpu/stages/draft_path.py: the logic verbatim, the imports rewritten to
 hinge_tpu_torch, and the graphml write in a span (`draft_path.graphml`;
-utils/log.py).
+utils/log.py).  It differs from hinge_tpu's in logic but not in output:
+X_draft.graphml is written by the port's own serializer (io/graphml.py),
+which writes the bytes `nx.write_graphml` writes on the same host.
 
 Stage 5a — contig path extraction (`hinge draft-path`).
 
@@ -29,6 +31,7 @@ import networkx as nx
 import numpy as np
 
 from hinge_tpu_torch.data.overlaps import ReadStore
+from hinge_tpu_torch.io import graphml
 from hinge_tpu_torch.utils.log import span
 from hinge_tpu_torch.graph.sgraph import rev_node
 
@@ -333,5 +336,5 @@ def run_draft_path(
                 f.write(ln + "\n")
     if out_graphml is not None:
         with span("draft_path.graphml"):
-            nx.write_graphml(out_graph, out_graphml)
+            graphml.write_graphml(out_graph, out_graphml)
     return lines, out_graph

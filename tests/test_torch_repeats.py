@@ -166,6 +166,28 @@ def test_pinned_graphml_serializer_byte_equal(multichrom, tmp_path):
         "asm1.G3.graphml", "asm_draft.graphml"]
 
 
+@pytest.mark.parametrize("writer", ["write_graphml_lxml"])
+def test_pinned_graphml_serializer_twin_byte_equal(multichrom, tmp_path,
+                                                   writer):
+    """test_pinned_graphml_serializer_byte_equal under networkx's other
+    writer: with lxml (where it imports, as here) the port's serializer
+    writes hinge_tpu's graphml bytes too."""
+    from unittest import mock
+
+    import networkx as nx
+    from networkx.readwrite import graphml
+
+    ini = write_ini(tmp_path, YEAST_DEMO_INI, "yeast.ini")
+    with mock.patch.object(nx, "write_graphml", getattr(graphml, writer)):
+        runs = assemble_both(tmp_path, multichrom["fasta"], multichrom["las"],
+                             ini)
+    (ref, _), (port, _) = runs.values()
+    names = assert_same_files(ref, port)
+    assert [n for n in names if n.endswith(".graphml")] == [
+        "asm1.G0.graphml", "asm1.G1.graphml", "asm1.G2.graphml",
+        "asm1.G3.graphml", "asm_draft.graphml"]
+
+
 def test_case_a_sharded_equals_single_device(case_a, monkeypatch):
     from hinge_tpu_torch.stages import layout as layout_mod
 

@@ -151,7 +151,8 @@ def test_timings_keep_their_keys(calls):
 
 def test_counters_of_the_call(calls):
     """The copy counters read 0 on the CPU; the draft's pairs split into
-    identical ones and those the band aligner took; the join counted."""
+    identical ones and those the band aligner took; the join counted; the
+    port's graphml serializer wrote clip's G0-G2 and X_draft.graphml itself."""
     c = calls[0].counters
     assert c["copy.h2d_bytes"] == c["copy.d2h_bytes"] == c["copy.d2h_calls"] == 0
     assert c["draft.pairs"] > c["draft.pairs_identical"] > 0
@@ -159,6 +160,9 @@ def test_counters_of_the_call(calls):
     assert c["join.blocks"] == 1
     assert c["join.hits"] >= c["join.anchors"] >= c["join.kept"] > 0
     assert min(c[k] for k in HINGE_COUNTERS) >= 0
+    assert c["graphml.files"] >= 4
+    assert c.get("graphml.delegated", 0) == 0
+    assert c["graphml.bytes"] > 0
 
 
 def test_profiled_spans_are_profiler_ranges(calls):
