@@ -44,7 +44,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_lib = None
+_kernels = None
 #: what the last build in this process did: seconds, commands, ptxas report
 build_info: dict = {}
 
@@ -100,8 +100,8 @@ def bind(libs: dict) -> types.SimpleNamespace:
     for path in libs.values():
         lib = ctypes.CDLL(path)
         for name, argtypes in SIGNATURES.items():
-            if hasattr(lib, name):
-                fn = getattr(lib, name)
+            fn = getattr(lib, name, None)
+            if fn is not None:
                 fn.argtypes = argtypes
                 fn.restype = _I
                 fns[name] = fn
@@ -114,9 +114,9 @@ def bind(libs: dict) -> types.SimpleNamespace:
 def load_kernels() -> types.SimpleNamespace:
     """The kernel entry points, compiled on first call when missing or
     older than their sources."""
-    global _lib
+    global _kernels
     with _lock:
-        if _lib is None:
-            _lib = bind(compile_sources(
+        if _kernels is None:
+            _kernels = bind(compile_sources(
                 sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))), BUILD_DIR))
-        return _lib
+        return _kernels

@@ -1,5 +1,7 @@
 """Copied from hinge_tpu/ops/dalign_trace.py: the logic verbatim, the imports rewritten to
-hinge_tpu_torch.
+hinge_tpu_torch, without hinge_tpu's Python wave (`iter_np_script`,
+`script_to_rows`) that stands in when its native library does not build:
+every window here is aligned by native/dalign_np.cpp.
 
 Exact DALIGNER trace-window alignment (recoverAlignment parity).
 
@@ -19,9 +21,8 @@ recoverAlignment LAInterface.cpp:4183-4205), so this module builds the same
 padded context per alignment and aligns windows at offsets into it.
 
 Provides:
-  - align_overlap_rows(...): exact full rows for one overlap (all windows).
-  - iter_np_script / script_to_rows: pure-Python transcription (oracle +
-    fallback when the native kernel is unavailable).
+  - align_overlap_rows_exact(...): exact full rows for many overlaps.
+  - fill_window_diffs / align_rows_flat_store: the same for whole stores.
 
 Row convention: base codes 0..3, gap code 4 (the reference uses 7 -> '-').
 """
@@ -32,9 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-GAP = np.uint8(4)
 BORDER = 10  # recoverAlignment's subread border (LAInterface.cpp:4149)
-_OOB = 0x7F  # below-context reads: never equal (reference reads malloc junk)
 
 
 def make_context(seq: np.ndarray, start: int, end: int) -> Tuple[np.ndarray, int, int]:
@@ -67,224 +66,6 @@ def window_bounds(a_start: int, a_end: int, b_start: int, b_end: int,
             trace_pairs[: len(a_bounds) - 2, 1].astype(np.int64))
     b_bounds[-1] = b_end
     return a_bounds, b_bounds
-
-
-def iter_np_script(ctx_a: np.ndarray, off_a: int, M: int,
-                   ctx_b: np.ndarray, off_b: int, N: int) -> List[int]:
-    """Pure-Python transcription of the wave (LAInterface.cpp:3152-3407),
-    window-local: returns signed 1-based script entries (+p insertion in B
-    at B position p; -p deletion at A position p)."""
-    if M == 0 and N == 0:
-        return []
-    dele = M - N
-
-    def A(x):
-        xi = off_a + x
-        return int(ctx_a[xi]) if xi >= 0 else _OOB
-
-    def B(x):
-        return int(ctx_b[off_b + x])
-
-    koff = N + 2
-    span = M + N + 6
-    rows = M + N + 4
-    PVF = np.zeros((rows, span), dtype=np.int64)
-    PHF = np.zeros((rows, span), dtype=np.int64)
-
-    def V(d):
-        return PVF[d + 2]
-
-    def H(d):
-        return PHF[d + 2]
-
-    if dele >= 0:
-        low, hgh = 0, dele
-    else:
-        low, hgh = dele, 0
-
-    F1 = V(-2)
-    F0 = V(-1)
-    for d in range(low - 1, hgh + 2):
-        F1[d + koff] = F0[d + koff] = -2
-    F0[0 + koff] = -1
-
-    low += 1
-    hgh -= 1
-
-    D = 0
-    while True:
-        F2 = F1
-        F1 = F0
-        F0 = V(D)
-        HF = H(D)
-
-        if (D & 1) == 0:
-            low -= 1
-            hgh += 1
-        F0[hgh + 1 + koff] = F0[low - 1 + koff] = -2
-
-        def fs_move(k, i, aoff, am, ap, mdir, pdir):
-            ac = int(F1[k + koff]) + 1
-            if ac < am:
-                if ap < am:
-                    HF[k + koff] = mdir
-                    j = am
-                else:
-                    HF[k + koff] = pdir
-                    j = ap
-            else:
-                if ap < ac:
-                    HF[k + koff] = 0
-                    j = ac
-                else:
-                    HF[k + koff] = pdir
-                    j = ap
-            lim = N if N < i else i
-            while j < lim and B(j) == A(aoff + j):
-                j += 1
-            F0[k + koff] = j
-            return j
-
-        j = -2
-        aoff = hgh
-        i = M - hgh
-        for k in range(hgh, dele, -1):
-            ap = j + 1
-            am = int(F2[k - 1 + koff])
-            j = fs_move(k, i, aoff, am, ap, -1, 4)
-            aoff -= 1
-            i += 1
-
-        j = -2
-        aoff = low
-        i = M - low
-        for k in range(low, dele):
-            ap = int(F2[k + 1 + koff]) + 1
-            am = j
-            j = fs_move(k, i, aoff, am, ap, 2, 1)
-            aoff += 1
-            i -= 1
-
-        ap = int(F0[dele + 1 + koff]) + 1
-        am = j
-        fs_move(dele, i, aoff, am, ap, 2, 4)
-
-        if F0[dele + koff] >= N:
-            break
-        D += 1
-
-    # uppermost traceback re-threading (LAInterface.cpp:3286-3351)
-    H(0)[0 + koff] = 3
-
-    c = N
-    k = dele
-    Dd = D
-    e = int(H(Dd)[k + koff])
-    H(Dd)[k + koff] = 3
-    while e != 3:
-        h = k + e
-        if e > 1:
-            h -= 3
-        elif e == 0:
-            Dd -= 1
-        else:
-            Dd -= 2
-        if h < k:
-            m = -k if k < 0 else 0
-            if V(Dd)[h + koff] <= c:
-                c = int(V(Dd)[h + koff]) - 1
-            while c >= m and A(k + c) == B(c):
-                c -= 1
-            if e < 1:
-                if c <= V(Dd + 2)[k + 1 + koff]:
-                    e = 4
-                    h = k + 1
-                    Dd = Dd + 2
-                elif c == V(Dd + 1)[k + koff]:
-                    e = 0
-                    h = k
-                    Dd = Dd + 1
-                else:
-                    V(Dd)[h + koff] = c + 1
-            else:
-                m = Dd if k == dele else Dd - 2
-                if c <= V(m)[k + 1 + koff]:
-                    e = 4 if k == dele else 1
-                    h = k + 1
-                    Dd = m
-                elif c == V(Dd - 1)[k + koff]:
-                    e = 0
-                    h = k
-                    Dd = Dd - 1
-                else:
-                    V(Dd)[h + koff] = c + 1
-        m = int(H(Dd)[h + koff])
-        H(Dd)[h + koff] = e
-        e = m
-        k = h
-
-    # forward walk emitting the script (LAInterface.cpp:3353-3374)
-    script: List[int] = []
-    k = Dd = 0
-    e = int(H(Dd)[k + koff])
-    while e != 3:
-        h = k - e
-        c = int(V(Dd)[k + koff])
-        if e > 1:
-            h += 3
-        elif e == 0:
-            Dd += 1
-        else:
-            Dd += 2
-        if h > k:
-            script.append(1 + c)
-        elif h < k:
-            script.append(-1 - (c + k))
-        k = h
-        e = int(H(Dd)[h + koff])
-    return script
-
-
-def script_to_rows(wa: np.ndarray, wb: np.ndarray,
-                   script: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
-    """getAlignmentTags' column emission (LAInterface.cpp:3829-3871) for one
-    window-local script.  wa/wb are the window base slices."""
-    M = len(wa)
-    ra = np.empty(M + len(wb), dtype=np.uint8)
-    rb = np.empty(M + len(wb), dtype=np.uint8)
-    i = j = 1
-    o = 0
-    for p in script:
-        if p < 0:
-            p = -p
-            while i != p:
-                ra[o] = wa[i - 1]
-                rb[o] = wb[j - 1]
-                o += 1
-                i += 1
-                j += 1
-            ra[o] = GAP
-            rb[o] = wb[j - 1]
-            o += 1
-            j += 1
-        else:
-            while j != p:
-                ra[o] = wa[i - 1]
-                rb[o] = wb[j - 1]
-                o += 1
-                i += 1
-                j += 1
-            ra[o] = wa[i - 1]
-            rb[o] = GAP
-            o += 1
-            i += 1
-    while i <= M:
-        ra[o] = wa[i - 1]
-        rb[o] = wb[j - 1]
-        o += 1
-        i += 1
-        j += 1
-    return ra[:o].copy(), rb[:o].copy()
 
 
 class _WindowBatch:
@@ -352,24 +133,6 @@ class _WindowBatch:
             np.concatenate(self._b_avail).astype(np.int32),
         )
 
-    def align(self) -> List[Tuple[np.ndarray, np.ndarray]]:
-        n = self._n
-        if n == 0:
-            return []
-        abuf, bbuf, a_ptr, b_ptr, a_len, b_len, a_avail, b_avail = self._flat()
-
-        rows = _native_rows(abuf, bbuf, a_ptr, a_len, a_avail,
-                            b_ptr, b_len, b_avail)
-        if rows is None:
-            rows = []
-            for w in range(n):
-                script = iter_np_script(abuf, int(a_ptr[w]), int(a_len[w]),
-                                        bbuf, int(b_ptr[w]), int(b_len[w]))
-                wa = abuf[a_ptr[w] : a_ptr[w] + a_len[w]]
-                wb = bbuf[b_ptr[w] : b_ptr[w] + b_len[w]]
-                rows.append(script_to_rows(wa, wb, script))
-        return rows
-
     def align_flat(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """All window rows as flat (flat_a, flat_b, win_len) in window order —
         no per-window array materialization (the per-window list in align()
@@ -382,18 +145,13 @@ class _WindowBatch:
                                       a_avail, b_avail)
 
     def diffs(self) -> np.ndarray:
-        """Per-window mismatch-column counts of the exact alignments —
-        computed natively WITHOUT materializing rows when possible."""
-        n = self._n
-        if n == 0:
+        """Per-window mismatch-column counts of the exact alignments,
+        computed natively without materializing rows."""
+        if self._n == 0:
             return np.zeros(0, np.int32)
         abuf, bbuf, a_ptr, b_ptr, a_len, b_len, a_avail, b_avail = self._flat()
-        d = _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail,
-                          b_ptr, b_len, b_avail)
-        if d is not None:
-            return d
-        rows = self.align()
-        return np.array([int((ra != rb).sum()) for ra, rb in rows], np.int32)
+        return _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail,
+                             b_ptr, b_len, b_avail)
 
 
 def rows_flat_from_windows(abuf, bbuf, a_ptr, b_ptr, a_len, b_len,
@@ -403,55 +161,19 @@ def rows_flat_from_windows(abuf, bbuf, a_ptr, b_ptr, a_len, b_len,
     z = np.zeros(0, np.uint8)
     if n == 0:
         return z, z, np.zeros(0, np.int64)
-    raw = _native_rows_raw(abuf, bbuf, a_ptr, a_len, a_avail,
-                           b_ptr, b_len, b_avail)
-    if raw is None:
-        rows = []
-        for w in range(n):
-            script = iter_np_script(abuf, int(a_ptr[w]), int(a_len[w]),
-                                    bbuf, int(b_ptr[w]), int(b_len[w]))
-            wa = abuf[a_ptr[w] : a_ptr[w] + a_len[w]]
-            wb = bbuf[b_ptr[w] : b_ptr[w] + b_len[w]]
-            rows.append(script_to_rows(wa, wb, script))
-        flat_a = np.concatenate([ra for ra, _ in rows]) if rows else z
-        flat_b = np.concatenate([rb for _, rb in rows]) if rows else z
-        win_len = np.array([len(ra) for ra, _ in rows], np.int64)
-        return flat_a, flat_b, win_len
-    out_a, out_b, out_off, out_len = raw
+    out_a, out_b, out_off, out_len = _native_rows_raw(
+        abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail)
     # compact the capacity-strided native buffers into dense flat rows
-    win_len = out_len.astype(np.int64)
     tot = _native_compact(out_a, out_b, out_off, out_len)
-    if tot is not None:
-        return out_a[:tot], out_b[:tot], win_len
-    # numpy fallback: one gather (out_len <= capacity per window)
-    tot = int(win_len.sum())
-    dst_off = np.zeros(n, np.int64)
-    np.cumsum(win_len[:-1], out=dst_off[1:])
-    within = np.arange(tot, dtype=np.int64) - np.repeat(dst_off, win_len)
-    src = np.repeat(out_off, win_len) + within
-    return out_a[src], out_b[src], win_len
+    return out_a[:tot], out_b[:tot], out_len.astype(np.int64)
 
 
-def _native_rows(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
-    raw = _native_rows_raw(abuf, bbuf, a_ptr, a_len, a_avail,
-                           b_ptr, b_len, b_avail)
-    if raw is None:
-        return None
-    out_a, out_b, out_off, out_len = raw
-    return [
-        (out_a[o : o + L].copy(), out_b[o : o + L].copy())
-        for o, L in zip(out_off, out_len)
-    ]
-
-
-def _native_compact(out_a, out_b, out_off, out_len):
+def _native_compact(out_a, out_b, out_off, out_len) -> int:
     """In-place dense compaction of capacity-strided row buffers (C memmove
-    pass); returns the dense total or None when the native lib is missing."""
+    pass); returns the dense total."""
     from hinge_tpu_torch import native
 
     lib = native.get_lib()
-    if lib is None or not hasattr(lib, "dalign_compact_rows"):
-        return None
     import ctypes as c
 
     return int(lib.dalign_compact_rows(
@@ -469,8 +191,6 @@ def _native_rows_raw(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
     from hinge_tpu_torch import native
 
     lib = native.get_lib()
-    if lib is None or not hasattr(lib, "dalign_rows_batch"):
-        return None
     import ctypes as c
 
     n = len(a_ptr)
@@ -485,32 +205,30 @@ def _native_rows_raw(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
     p8 = c.POINTER(c.c_uint8)
     p32 = c.POINTER(c.c_int32)
     p64 = c.POINTER(c.c_int64)
-    if hasattr(lib, "dalign_rows_batch_mt"):
-        rc = lib.dalign_rows_batch_mt(
-            abuf.ctypes.data_as(p8), bbuf.ctypes.data_as(p8),
-            a_ptr.ctypes.data_as(p64), a_len.ctypes.data_as(p32),
-            a_avail.ctypes.data_as(p32),
-            b_ptr.ctypes.data_as(p64), b_len.ctypes.data_as(p32),
-            b_avail.ctypes.data_as(p32),
-            c.c_int64(n),
-            out_a.ctypes.data_as(p8), out_b.ctypes.data_as(p8),
-            out_off.ctypes.data_as(p64), out_len.ctypes.data_as(p32),
-            c.c_int32(_os.cpu_count() or 1),
-        )
-    else:
-        rc = lib.dalign_rows_batch(
-            abuf.ctypes.data_as(p8), bbuf.ctypes.data_as(p8),
-            a_ptr.ctypes.data_as(p64), a_len.ctypes.data_as(p32),
-            a_avail.ctypes.data_as(p32),
-            b_ptr.ctypes.data_as(p64), b_len.ctypes.data_as(p32),
-            b_avail.ctypes.data_as(p32),
-            c.c_int(n),
-            out_a.ctypes.data_as(p8), out_b.ctypes.data_as(p8),
-            out_off.ctypes.data_as(p64), out_len.ctypes.data_as(p32),
-        )
-    if rc != 0:
-        return None
+    rc = lib.dalign_rows_batch_mt(
+        abuf.ctypes.data_as(p8), bbuf.ctypes.data_as(p8),
+        a_ptr.ctypes.data_as(p64), a_len.ctypes.data_as(p32),
+        a_avail.ctypes.data_as(p32),
+        b_ptr.ctypes.data_as(p64), b_len.ctypes.data_as(p32),
+        b_avail.ctypes.data_as(p32),
+        c.c_int64(n),
+        out_a.ctypes.data_as(p8), out_b.ctypes.data_as(p8),
+        out_off.ctypes.data_as(p64), out_len.ctypes.data_as(p32),
+        c.c_int32(_os.cpu_count() or 1),
+    )
+    _check_windows("dalign_rows_batch_mt", rc)
     return out_a, out_b, out_off, out_len
+
+
+def _check_windows(fn: str, rc: int) -> None:
+    """Raise on the C wave's -1: a window of negative length, or with no
+    context byte before it.  The window builders here make one only from a
+    malformed record (a negative start, a_start > a_end, or trace
+    displacements that run past its B span), which neither the overlapper
+    nor DALIGNER writes."""
+    if rc != 0:
+        raise ValueError(f"{fn} returned {rc}: a window of negative length "
+                         "or without context (a malformed record)")
 
 
 def _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
@@ -519,8 +237,6 @@ def _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
     from hinge_tpu_torch import native
 
     lib = native.get_lib()
-    if lib is None or not hasattr(lib, "dalign_diffs_batch"):
-        return None
     import ctypes as c
 
     n = len(a_ptr)
@@ -537,8 +253,7 @@ def _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail, b_ptr, b_len, b_avail):
         c.c_int64(n), out.ctypes.data_as(p32),
         c.c_int32(_os.cpu_count() or 1),
     )
-    if rc != 0:
-        return None
+    _check_windows("dalign_diffs_batch", rc)
     return out
 
 
@@ -564,12 +279,10 @@ _SCRATCH = _Scratch()
 
 
 def _native_contexts(a_cat, a_lo, a_hi, a_dst, b_cat, b_lo, b_hi, b_dst,
-                     rcb, abuf, bbuf) -> bool:
+                     rcb, abuf, bbuf) -> None:
     from hinge_tpu_torch import native
 
     lib = native.get_lib()
-    if lib is None or not hasattr(lib, "build_contexts"):
-        return False
     import ctypes as c
 
     p8 = c.POINTER(c.c_uint8)
@@ -581,7 +294,6 @@ def _native_contexts(a_cat, a_lo, a_hi, a_dst, b_cat, b_lo, b_hi, b_dst,
         args.append(np.ascontiguousarray(arr).ctypes.data_as(ptr))
     lib.build_contexts(*args, rc8.ctypes.data_as(p8), c.c_int64(len(a_lo)),
                        abuf.ctypes.data_as(p8), bbuf.ctypes.data_as(p8))
-    return True
 
 
 def _seg_arange(counts: np.ndarray) -> np.ndarray:
@@ -591,9 +303,6 @@ def _seg_arange(counts: np.ndarray) -> np.ndarray:
     out = np.arange(total, dtype=np.int64)
     out -= np.repeat(np.cumsum(counts) - counts, counts)
     return out
-
-
-_COMP = np.array([3, 2, 1, 0], dtype=np.uint8)
 
 
 def build_flat_windows(
@@ -643,8 +352,8 @@ def build_flat_windows(
     bbuf[cb_off[:-1]] = 4
     bbuf[cb_off[1:] - 1] = 4
     # context interiors: per-record memcpy/revcomp into the preallocated
-    # buffers — native when available (the Python slice loop was ~20% of
-    # map+consensus wall at 10^5 records; index-array gathers even slower)
+    # buffers, natively (a Python slice loop was ~20% of map+consensus wall
+    # at 10^5 records; index-array gathers even slower)
     ao = (a_off.astype(i64) + amin)
     a_hi_src = (a_off.astype(i64) + amax)
     ad = ca_off[:-1] + 1
@@ -652,21 +361,8 @@ def build_flat_windows(
     bo_lo = np.where(rcb, b_off + b_len_rec - bmax, b_off + bmin)
     bo_hi = np.where(rcb, b_off + b_len_rec - bmin, b_off + bmax)
     bd = cb_off[:-1] + 1
-    if not _native_contexts(a_cat, ao, a_hi_src, ad,
-                            b_cat, bo_lo, bo_hi, bd, rcb, abuf, bbuf):
-        aol, ahl, adl = ao.tolist(), a_hi_src.tolist(), ad.tolist()
-        bll, bhl, bdl2 = bo_lo.tolist(), bo_hi.tolist(), bd.tolist()
-        ibl = (cb_len - 2).tolist()
-        rcl = rcb.tolist()
-        for r in range(n):
-            o = adl[r]
-            abuf[o : o + (ahl[r] - aol[r])] = a_cat[aol[r] : ahl[r]]
-            o = bdl2[r]
-            seg = b_cat[bll[r] : bhl[r]]
-            if rcl[r]:
-                bbuf[o : o + ibl[r]] = _COMP[seg][::-1]
-            else:
-                bbuf[o : o + ibl[r]] = seg
+    _native_contexts(a_cat, ao, a_hi_src, ad,
+                     b_cat, bo_lo, bo_hi, bd, rcb, abuf, bbuf)
 
     # ---- window lattice (computeTracePTS' loop) ----
     s0 = (a0 // tspace + 1) * tspace
@@ -725,17 +421,7 @@ def fill_window_diffs(ov, targets, rs) -> None:
         ov.a_start, ov.a_end, ov.b_start, ov.b_end, ov.rc,
         ov.trace, ov.trace_off, ov.tlen, int(ov.tspace))
     d = _native_diffs(abuf, bbuf, a_ptr, a_len, a_avail,
-                      b_ptr, b_len, b_avail)
-    if d is None:
-        rows = rows_flat_from_windows(abuf, bbuf, a_ptr, b_ptr,
-                                      a_len, b_len, a_avail, b_avail)
-        fa, fb, wl = rows
-        off = np.zeros(len(wl) + 1, np.int64)
-        np.cumsum(wl, out=off[1:])
-        neq = np.cumsum(fa != fb)
-        pz = np.concatenate([[0], neq])
-        d = (pz[off[1:]] - pz[off[:-1]]).astype(np.int64)
-    d = np.asarray(d, np.int64)
+                      b_ptr, b_len, b_avail).astype(np.int64)
     if len(owner) == 0:
         ov.diffs[:] = 0
         return

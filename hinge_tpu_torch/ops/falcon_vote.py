@@ -1,5 +1,6 @@
 """Copied from hinge_tpu/ops/falcon_vote.py: the logic verbatim, the imports rewritten to
-hinge_tpu_torch.
+hinge_tpu_torch, without hinge_tpu's per-row tag loop (`get_align_tags`)
+for a missing native library: the tags come from native/sweeps.cpp only.
 
 FALCON-style align-tag MSA consensus.
 
@@ -28,86 +29,15 @@ import numpy as np
 GAP = 4
 
 
-def get_align_tags(
-    q_row: np.ndarray, t_row: np.ndarray, q_id: int, t_offset: int = 0
-) -> np.ndarray:
-    """Tag list for one aligned pair (falcon.c:69-130), vectorized.
-
-    Returns int32 array (L, 6): t_pos, delta, p_t_pos, p_delta, p_q_base,
-    q_base (bases 0..4, 4 = gap; p_q_base 5 = '.' start sentinel).
-
-    j is a cumulative count of t non-gaps; delta (jj) counts q non-gaps
-    since the last t-advance (reset applied after the q increment, so a
-    column advancing both has delta 0). Falls back to the scalar loop when
-    any column would be dropped by the emission filter (delta >= 255 or
-    j + t_offset < 0) since drops change the predecessor chaining.
-    """
-    L = len(q_row)
-    if L == 0:
-        return np.zeros((0, 6), dtype=np.int32)
-    qn = q_row != GAP
-    tn = t_row != GAP
-    j = np.cumsum(tn, dtype=np.int64) - 1
-    cq = np.cumsum(qn, dtype=np.int64)
-    # baseline of cq at the most recent t-advance (inclusive)
-    base = np.where(tn, cq, 0)
-    base = np.maximum.accumulate(base)
-    # positions before the first t-advance keep baseline 0
-    jj = cq - base
-    keep = (j + t_offset >= 0) & (jj < 255)
-    # p_jj < 255 always holds when all jj < 255; if any column is dropped,
-    # chaining changes — use the scalar path
-    if not keep.all():
-        return _get_align_tags_scalar(q_row, t_row, q_id, t_offset)
-    out = np.empty((L, 6), dtype=np.int32)
-    out[:, 0] = j + t_offset
-    out[:, 1] = jj
-    out[1:, 2] = j[:-1] + t_offset
-    out[0, 2] = -1 + t_offset
-    out[1:, 3] = jj[:-1]
-    out[0, 3] = 0
-    out[1:, 4] = q_row[:-1]
-    out[0, 4] = 5
-    out[:, 5] = q_row
-    return out
-
-
-def _get_align_tags_scalar(
-    q_row: np.ndarray, t_row: np.ndarray, q_id: int, t_offset: int = 0
-) -> np.ndarray:
-    """Direct falcon.c:69-130 transcription (fallback + oracle)."""
-    L = len(q_row)
-    out = np.zeros((L, 6), dtype=np.int32)
-    i = -1
-    j = -1
-    jj = 0
-    p_j = -1
-    p_jj = 0
-    p_qb = 5
-    n = 0
-    for k in range(L):
-        if q_row[k] != GAP:
-            i += 1
-            jj += 1
-        if t_row[k] != GAP:
-            j += 1
-            jj = 0
-        if j + t_offset >= 0 and jj < 255 and p_jj < 255:
-            out[n] = (j + t_offset, jj, p_j + t_offset, p_jj, p_qb, q_row[k])
-            p_j = j
-            p_jj = jj
-            p_qb = int(q_row[k])
-            n += 1
-    return out[:n]
-
-
 def get_align_tags_batch(rows_q, rows_t, sentinel: bool = True):
-    """Batched get_align_tags over many aligned row pairs via the native C
-    pass (native/sweeps.cpp::falcon_tags_batch); per-row numpy/scalar
-    fallback without the toolchain.  sentinel=True prepends the virtual
-    'T'/'T' column (draft.cpp:652-659) to every pair.  Returns a list of
-    (L_i, 6) int32 arrays, bit-identical to calling get_align_tags on each
-    (sentinel-prepended) pair."""
+    """get_align_tags (falcon.c:69-130) over many aligned row pairs via the
+    native C pass (native/sweeps.cpp::falcon_tags_batch).  Each column
+    becomes a tag (t_pos, delta, p_t_pos, p_delta, p_q_base, q_base) (bases
+    0..4, 4 = gap; p_q_base 5 = '.' start sentinel), chained to the last
+    kept tag; columns with delta >= 255 or before the template are
+    dropped.  sentinel=True prepends the virtual 'T'/'T' column
+    (draft.cpp:652-659) to every pair.  Returns a list of (L_i, 6) int32
+    arrays."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
@@ -116,14 +46,6 @@ def get_align_tags_batch(rows_q, rows_t, sentinel: bool = True):
     if n == 0:
         return []
     lib = get_lib()
-    if lib is None or not hasattr(lib, "falcon_tags_batch"):
-        out = []
-        for q, t in zip(rows_q, rows_t):
-            if sentinel:
-                q = np.concatenate([[np.uint8(3)], q])
-                t = np.concatenate([[np.uint8(3)], t])
-            out.append(get_align_tags(q, t, 0, 0))
-        return out
     row_off = np.zeros(n + 1, np.int64)
     for i, q in enumerate(rows_q):
         row_off[i + 1] = row_off[i] + len(q)
@@ -264,9 +186,9 @@ def get_cns_batch(
 
     tag_windows[i] is one (N_i, 6) int32 array — that window's tag sequences
     already concatenated (sequence boundaries are irrelevant to the column
-    DP).  Uses the native C core (io_native.cpp:falcon_cns_batch) when
-    available, windows it rejects (or everything, without a toolchain) fall
-    back to the per-window numpy path.  Outputs byte-identical either way.
+    DP).  Runs the native C core (io_native.cpp:falcon_cns_batch); the
+    windows it rejects take the per-window numpy path.  Outputs
+    byte-identical either way.
     """
     B = len(tag_windows)
     if B == 0:
@@ -274,7 +196,7 @@ def get_cns_batch(
     t_lens = np.asarray(t_lens, dtype=np.int64)
     min_covs = np.asarray(min_covs, dtype=np.int64)
     out: List = [None] * B
-    lens = _native_cns_batch(tag_windows, t_lens, min_covs, out)
+    _native_cns_batch(tag_windows, t_lens, min_covs, out)
     for i in range(B):
         if out[i] is None:
             out[i] = get_cns_from_align_tags(
@@ -283,14 +205,14 @@ def get_cns_batch(
     return out
 
 
-def _native_cns_batch(tag_windows, t_lens, min_covs, out) -> bool:
+def _native_cns_batch(tag_windows, t_lens, min_covs, out) -> None:
+    """Fill out[i] with window i's (consensus, low-coverage mask), leaving
+    None where the C core rejects the window (its out_len -1)."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "falcon_cns_batch"):
-        return False
     B = len(tag_windows)
     win_off = np.zeros(B + 1, dtype=np.int64)
     for i, tw in enumerate(tag_windows):
@@ -311,7 +233,7 @@ def _native_cns_batch(tag_windows, t_lens, min_covs, out) -> bool:
     out_low = np.zeros(max(total, 1), dtype=np.uint8)
     out_len = np.zeros(B, dtype=np.int64)
     c = ctypes
-    r = lib.falcon_cns_batch(
+    lib.falcon_cns_batch(
         flat.ctypes.data_as(c.POINTER(c.c_int32)),
         win_off.ctypes.data_as(c.POINTER(c.c_int64)),
         t_lens.ctypes.data_as(c.POINTER(c.c_int64)),
@@ -323,16 +245,13 @@ def _native_cns_batch(tag_windows, t_lens, min_covs, out) -> bool:
         out_len.ctypes.data_as(c.POINTER(c.c_int64)),
         c.c_int32(os.cpu_count() or 1),
     )
-    if r != 0:
-        return False
     for i in range(B):
         n = int(out_len[i])
         if n < 0:
-            continue  # python fallback fills it
+            continue  # rejected: get_cns_batch runs the numpy path
         o = int(out_off[i])
         out[i] = (out_seq[o : o + n].copy(),
                   out_low[o : o + n].astype(bool))
-    return True
 
 
 def get_cns_from_align_tags_ref(

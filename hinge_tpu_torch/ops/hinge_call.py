@@ -84,11 +84,11 @@ def _hinge_kernel(pos_a, grad, m0, m1, rid, ams, ame, lov, rov, valid,
 
 def introsort_perm(keys: np.ndarray, descending: bool) -> np.ndarray:
     """The exact std::sort permutation (libstdc++ introsort) for a
-    single-key comparator; a stable argsort without the native oracle.
+    single-key comparator, by the native oracle.
 
-    Host code, carried over unchanged from
+    Host code, carried over from
     `hinge_tpu/ops/hinge_call.py::introsort_perm` (that module imports
-    jax)."""
+    jax), less its stable argsort for a missing native library."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
@@ -97,8 +97,6 @@ def introsort_perm(keys: np.ndarray, descending: bool) -> np.ndarray:
     if not descending:
         keys = -keys
     lib = get_lib()
-    if lib is None or not hasattr(lib, "stdsort_desc_perm"):
-        return np.argsort(-keys, kind="stable")
     out = np.zeros(len(keys), np.int32)
     lib.stdsort_desc_perm(
         keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),

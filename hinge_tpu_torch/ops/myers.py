@@ -1,5 +1,6 @@
 """Copied from hinge_tpu/ops/myers.py: the logic verbatim, the imports rewritten to
-hinge_tpu_torch.
+hinge_tpu_torch; the batch aligners run the native kernel only, without
+hinge_tpu's per-window Python loop for a missing native library.
 
 Banded Myers O(ND) difference alignment.
 
@@ -211,18 +212,16 @@ def align_exact(q: np.ndarray, t: np.ndarray, band_tolerance: int = 150) -> Tupl
 
 
 def align_exact_batch(qs, ts, band_tolerance: int = 150):
-    """align_exact over a batch (native kernel with pad_full=0 when
-    available, else the Python loop)."""
+    """align_exact over a batch (the native kernel with pad_full=0)."""
     return _align_batch_impl(qs, ts, band_tolerance, pad_full=0)
 
 
 def align_full_batch(qs, ts, band_tolerance: int = 150):
     """align_full over a batch of windows.
 
-    Uses the native C kernel (io_native.cpp myers_align_batch — the same
-    furthest-reaching-diagonal recurrence, so rows are byte-identical) when
-    the toolchain is available, else the Python loop.  This is the CPU
-    fast path for the draft/consensus window alignments.
+    Runs the native C kernel (io_native.cpp myers_align_batch — the same
+    furthest-reaching-diagonal recurrence, so rows are byte-identical).
+    This is the CPU path for the draft/consensus window alignments.
     """
     return _align_batch_impl(qs, ts, band_tolerance, pad_full=1)
 
@@ -234,9 +233,6 @@ def _align_batch_impl(qs, ts, band_tolerance: int, pad_full: int):
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "myers_align_batch"):
-        fn = align_full if pad_full else align_exact
-        return [fn(q, t, band_tolerance) for q, t in zip(qs, ts)]
     import ctypes as C
 
     q_off = np.zeros(B + 1, dtype=np.int64)

@@ -2,9 +2,10 @@
 
 Host code carried over from `hinge_tpu/ops/pairs.py` (that module imports
 jax for its device trim fallback); the semantics and the libstdc++ order
-replay are documented there.  The trim runs in the native library; when
-that library is missing, the trim lattice of `ops/classify.py` runs on the
-caller's device instead.
+replay are documented there.  The trim and the libstdc++ orders run in the
+native library only: the port has none of hinge_tpu's fallbacks for a
+missing one.  `_lattice_trim`, the trim lattice of `ops/classify.py` on a
+device, is held equal to the native trim by the tests and on the card.
 """
 
 from __future__ import annotations
@@ -27,66 +28,47 @@ def top_k_per_pair(ov: OverlapStore, k: int = 2) -> np.ndarray:
         return np.zeros(0, dtype=np.int64)
     key = ov.a_id.astype(np.int64) * (int(ov.b_id.max()) + 1) + ov.b_id
     mlen = ov.match_len().astype(np.int64)
-
-    orders = _libstdcxx_orders()
-    if orders is not None:
-        umap_batch, sort_batch = orders
-        order0 = np.lexsort((np.arange(n), key))
-        sk = key[order0]
-        first = np.ones(n, dtype=bool)
-        first[1:] = sk[1:] != sk[:-1]
-        grp_start = np.nonzero(first)[0]
-        grp_off = np.append(grp_start, n).astype(np.int64)
-        n_grp = len(grp_start)
-        w = np.ascontiguousarray(mlen[order0])
-        perm = np.zeros(n, dtype=np.int32)
-        sort_batch(w, grp_off, n_grp, perm)
-        grp_a = ov.a_id[order0[grp_start]].astype(np.int64)
-        grp_b = ov.b_id[order0[grp_start]].astype(np.int32)
-        grp_min_las = np.minimum.reduceat(order0, grp_off[:-1])
-        ins = np.lexsort((grp_min_las, grp_a))
-        a_sorted = grp_a[ins]
-        a_first = np.ones(n_grp, dtype=bool)
-        a_first[1:] = a_sorted[1:] != a_sorted[:-1]
-        a_off = np.append(np.nonzero(a_first)[0], n_grp).astype(np.int64)
-        keys_flat = np.ascontiguousarray(grp_b[ins])
-        uorder = np.zeros(n_grp, dtype=np.int32)
-        umap_batch(keys_flat, a_off, len(a_off) - 1, uorder)
-        a_counts = np.diff(a_off)
-        g_emit = ins[np.repeat(a_off[:-1], a_counts) + uorder.astype(np.int64)]
-        g_size = (grp_off[g_emit + 1] - grp_off[g_emit]).astype(np.int64)
-        take = np.minimum(g_size, k)
-        tot = int(take.sum())
-        local = np.arange(tot, dtype=np.int64)
-        off_take = np.cumsum(take) - take
-        local -= np.repeat(off_take, take)
-        gs_rep = np.repeat(grp_off[g_emit], take)
-        flat = gs_rep + local
-        return order0[gs_rep + perm[flat]]
-
-    order = np.lexsort((np.arange(n), -mlen, key))
-    sk = key[order]
+    umap_batch, sort_batch = _libstdcxx_orders()
+    order0 = np.lexsort((np.arange(n), key))
+    sk = key[order0]
     first = np.ones(n, dtype=bool)
     first[1:] = sk[1:] != sk[:-1]
-    grp_id = np.cumsum(first) - 1
-    grp_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
-    rank = np.arange(n) - grp_start
-    n_grp = int(grp_id[-1]) + 1
-    min_las = np.full(n_grp, np.iinfo(np.int64).max, dtype=np.int64)
-    np.minimum.at(min_las, grp_id, order)
-    keep_mask = rank < k
-    out = np.lexsort((rank[keep_mask], min_las[grp_id[keep_mask]]))
-    return order[keep_mask][out]
+    grp_start = np.nonzero(first)[0]
+    grp_off = np.append(grp_start, n).astype(np.int64)
+    n_grp = len(grp_start)
+    w = np.ascontiguousarray(mlen[order0])
+    perm = np.zeros(n, dtype=np.int32)
+    sort_batch(w, grp_off, n_grp, perm)
+    grp_a = ov.a_id[order0[grp_start]].astype(np.int64)
+    grp_b = ov.b_id[order0[grp_start]].astype(np.int32)
+    grp_min_las = np.minimum.reduceat(order0, grp_off[:-1])
+    ins = np.lexsort((grp_min_las, grp_a))
+    a_sorted = grp_a[ins]
+    a_first = np.ones(n_grp, dtype=bool)
+    a_first[1:] = a_sorted[1:] != a_sorted[:-1]
+    a_off = np.append(np.nonzero(a_first)[0], n_grp).astype(np.int64)
+    keys_flat = np.ascontiguousarray(grp_b[ins])
+    uorder = np.zeros(n_grp, dtype=np.int32)
+    umap_batch(keys_flat, a_off, len(a_off) - 1, uorder)
+    a_counts = np.diff(a_off)
+    g_emit = ins[np.repeat(a_off[:-1], a_counts) + uorder.astype(np.int64)]
+    g_size = (grp_off[g_emit + 1] - grp_off[g_emit]).astype(np.int64)
+    take = np.minimum(g_size, k)
+    tot = int(take.sum())
+    local = np.arange(tot, dtype=np.int64)
+    off_take = np.cumsum(take) - take
+    local -= np.repeat(off_take, take)
+    gs_rep = np.repeat(grp_off[g_emit], take)
+    flat = gs_rep + local
+    return order0[gs_rep + perm[flat]]
 
 
 def _libstdcxx_orders():
     """(umap_iter_order_batch, stdsort_desc_perm_batch) callables bound to
-    numpy arrays, or None without the native library."""
+    numpy arrays."""
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "umap_iter_order_batch"):
-        return None
     import ctypes as c
 
     p32 = c.POINTER(c.c_int32)
@@ -127,15 +109,12 @@ class ProcessedAlignments:
 
 
 def _native_trim(sub: OverlapStore, ears, eare, ebrs, ebre, tspace: int):
-    """Trace-walk trim via native/sweeps.cpp::trim_overlaps_batch; None
-    without the toolchain."""
+    """Trace-walk trim via native/sweeps.cpp::trim_overlaps_batch."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "trim_overlaps_batch"):
-        return None
     n = sub.n
     i32 = lambda a: np.ascontiguousarray(a, np.int32)  # noqa: E731
     a0, a1 = i32(sub.a_start), i32(sub.a_end)
@@ -190,11 +169,9 @@ def process_alignments(
     theta: int,
     theta2: int,
     trim: bool,
-    *,
-    device,
 ) -> ProcessedAlignments:
-    """Batched ProcessAlignment (maximal.cpp:65-134); the trim lattice, if
-    it runs, runs on `device`."""
+    """Batched ProcessAlignment (maximal.cpp:65-134), its trim by the native
+    trace walk."""
     sub = ov.take(rows)
     ears = eff_read_start[sub.a_id].astype(np.int32)
     eare = eff_read_end[sub.a_id].astype(np.int32)
@@ -204,10 +181,8 @@ def process_alignments(
     if trim:
         # CL.TRIM_GRID, not ov.tspace: the reference trims on a hardcoded
         # 100-base lattice whatever the file's trace spacing is
-        native = _native_trim(sub, ears, eare, ebrs, ebre, CL.TRIM_GRID)
-        if native is None:
-            native = _lattice_trim(sub, ears, eare, ebrs, ebre, device)
-        eams, eame, ebms, ebme, act = native
+        eams, eame, ebms, ebme, act = _native_trim(
+            sub, ears, eare, ebrs, ebre, CL.TRIM_GRID)
     else:
         eams, eame = sub.a_start.copy(), sub.a_end.copy()
         ebms, ebme = sub.b_start.copy(), sub.b_end.copy()

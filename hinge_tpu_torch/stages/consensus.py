@@ -13,16 +13,18 @@ over {A,C,G,T,-} plus a single-insertion track (:162-269):
 
 The vote accumulations are scatter-adds over (position, base), done as
 torch ops on the run's device (`ops/consensus_vote.py`) when it is a CUDA
-device, else by the native C vote (numpy without the toolchain);
-HINGE_DEVICE_VOTE=1 / 0 / np forces the device vote / the native vote /
-numpy (`vote_route`).  All three are integer-exact.  `run_consensus`'s
+device, else by the native C vote; HINGE_DEVICE_VOTE=1 / 0 / np forces the
+device vote / the native vote / numpy (`vote_route`).  All three are
+integer-exact.  `run_consensus`'s
 parts are spans (`consensus.rows`, `consensus.vote`, `consensus.emit`,
 summed over contigs; utils/log.py).
 
 Port of `hinge_tpu/stages/consensus.py`, host code carried over: that
 module imports `ops.batch_align` (jax) for a trace-realignment branch its
 one caller never takes (it passes only rows with tlen <= 0), so the port
-drops that branch.
+drops that branch.  The port also drops hinge_tpu's fallbacks for a
+missing native library: the alignment order is the libstdc++ replay, and
+the "native" route is the C vote, always.
 """
 
 from __future__ import annotations
@@ -170,15 +172,12 @@ def _vote_tallies(
 
 def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
     """One-pass C vote accumulation (native/sweeps.cpp); integer-exact vs
-    `_vote_tallies`, which tests pin as the oracle.  None without the
-    toolchain."""
+    `_vote_tallies`, which tests pin as the oracle."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "consensus_vote_batch"):
-        return None
     n = int(seg_len.size)
     seg_off = np.zeros(n + 1, np.int64)
     np.cumsum(seg_len.astype(np.int64), out=seg_off[1:])
@@ -204,7 +203,7 @@ def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
 
 def vote_route(device) -> str:
     """Which vote the consensus stage runs on `device`: "device" (torch ops
-    on it), "native" (the C vote; numpy without the toolchain) or "np".
+    on it), "native" (the C vote) or "np".
     HINGE_DEVICE_VOTE=1 / 0 / np picks one; unset, the device vote on CUDA
     and the native vote on the CPU."""
     mode = os.environ.get("HINGE_DEVICE_VOTE", "")
@@ -225,9 +224,7 @@ def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen, device):
         return vote_tallies_device(flat_a, flat_b, seg_len, pos0, alen,
                                    device=device)
     if route == "native":
-        native = _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen)
-        if native is not None:
-            return native
+        return _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen)
     return _vote_tallies(flat_a, flat_b, seg_len, pos0, alen)
 
 
@@ -255,38 +252,27 @@ def sort_alignments(aln: OverlapStore, n_contigs: int):
     lengths can land in introsort order, and remove_multialign then keeps a
     different alignment than a stable sort would (seen as case-only
     consensus divergence at the 4.6Mb scale).  Replay the exact introsort
-    permutation via native/stdcxx_order.cpp; fall back to the stable order
-    only without the native toolchain.  Returns (order, bounds): contig ci's
-    sorted rows are order[bounds[ci]:bounds[ci+1]].
+    permutation via native/stdcxx_order.cpp.  Returns (order, bounds):
+    contig ci's sorted rows are order[bounds[ci]:bounds[ci+1]].
     """
     file_order = np.argsort(aln.a_id, kind="stable").astype(np.int64)
     bounds = np.searchsorted(aln.a_id[file_order], np.arange(n_contigs + 1))
-    _orders = _libstdcxx_orders()
     # rows with a_id outside [0, n_contigs) have no contig to vote on; drop
-    # them up front so both sort paths (native batch + lexsort fallback)
-    # see the same population (the lexsort path previously ignored them
-    # silently while the native path mis-sized its permutation)
+    # them up front, or the permutation would be mis-sized
     if aln.n and (int(aln.a_id.min()) < 0 or int(aln.a_id.max()) >= n_contigs):
         keep = (aln.a_id[file_order] >= 0) & (aln.a_id[file_order] < n_contigs)
         file_order = file_order[keep]
         bounds = np.searchsorted(
             aln.a_id[file_order], np.arange(n_contigs + 1))
-    if _orders is not None and len(file_order):
-        _, _sort_batch = _orders
-        w = np.ascontiguousarray(aln.match_len().astype(np.int64)[file_order])
-        off = np.ascontiguousarray(bounds.astype(np.int64))
-        perm = np.empty(len(file_order), np.int32)
-        _sort_batch(w, off, n_contigs, perm)
-        counts = np.diff(bounds)
-        order = file_order[np.repeat(bounds[:-1], counts) + perm]
-    else:
-        sub = np.lexsort((
-            np.arange(len(file_order)),
-            -(aln.match_len()[file_order]),
-            aln.a_id[file_order],
-        ))
-        order = file_order[sub]
-    return order, bounds
+    if len(file_order) == 0:
+        return file_order, bounds
+    _, sort_batch = _libstdcxx_orders()
+    w = np.ascontiguousarray(aln.match_len().astype(np.int64)[file_order])
+    off = np.ascontiguousarray(bounds.astype(np.int64))
+    perm = np.empty(len(file_order), np.int32)
+    sort_batch(w, off, n_contigs, perm)
+    counts = np.diff(bounds)
+    return file_order[np.repeat(bounds[:-1], counts) + perm], bounds
 
 
 def select_rows(rows: np.ndarray, aln: OverlapStore, min_len: int):

@@ -4,7 +4,8 @@ Port of `hinge_tpu/stages/filter.py` (reference `src/filter/filter.cpp`):
 the pileup grids are built and kept on the torch device by
 `_ResidentProfiles`, hinge calling runs as one batched torch op, and the
 host logic (coverage estimate, telomere flags, annotation merging, the
-per-part stage-file snapshots) is carried over unchanged.  Writes X.mas
+per-part stage-file snapshots) is carried over unchanged, less the Python
+coverage.txt lines hinge_tpu writes without its native library.  Writes X.mas
 X.cmas X.coverage.txt X.repeat.txt X.hinges.txt X.cov.flag X.self.flag
 X.homologous.txt X.filtered.fasta, byte-identical to hinge_tpu.  Hinge
 calling runs in span `filter.hinges`; counters `filter.in_hinges` and
@@ -369,15 +370,8 @@ def run_filter(
 
         # ---- coverage.txt lines (filter.cpp:599-602) ----
         if coverage_lines is not None:
-            native = _native_coverage_lines(cov, ne, reso, r_begin)
-            if native is not None:
-                coverage_lines.extend(native)
-            else:
-                for ri in range(n_chunk):
-                    i = r_begin + ri
-                    vals = cov[ri, : ne[ri]]
-                    body = "".join(f"{j*reso},{int(v)} " for j, v in enumerate(vals))
-                    coverage_lines.append(f"read {i} {body}")
+            coverage_lines.extend(
+                _native_coverage_lines(cov, ne, reso, r_begin))
 
     res = FilterResult(
         maskvec=maskvec,
@@ -400,30 +394,28 @@ def run_filter(
 
 
 def _native_coverage_lines(cov, ne, reso, r_begin):
-    """coverage.txt body via native/sweeps.cpp::format_coverage_lines;
-    a list of lines, or None without the toolchain."""
+    """coverage.txt body ("read <i> <pos>,<cov> ..." a read) via
+    native/sweeps.cpp::format_coverage_lines, as a list of lines."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "format_coverage_lines"):
-        return None
-    lib.format_coverage_lines.restype = ctypes.c_int64
     c = np.ascontiguousarray(cov, np.int32)
     n = np.ascontiguousarray(ne, np.int32)
     cap = int(c.shape[0]) * 32 + int(np.minimum(n, c.shape[1]).sum()) * 20
-    buf = ctypes.create_string_buffer(cap)
-    w = lib.format_coverage_lines(
-        c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        n.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        ctypes.c_int64(c.shape[0]), ctypes.c_int64(c.shape[1]),
-        ctypes.c_int32(reso), ctypes.c_int64(r_begin),
-        buf, ctypes.c_int64(cap),
-    )
-    if w < 0:
-        return None
-    return buf.raw[:w].decode().split("\n")[:-1]
+    while True:
+        buf = ctypes.create_string_buffer(cap)
+        w = lib.format_coverage_lines(
+            c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(c.shape[0]), ctypes.c_int64(c.shape[1]),
+            ctypes.c_int32(reso), ctypes.c_int64(r_begin),
+            buf, ctypes.c_int64(cap),
+        )
+        if w >= 0:
+            return buf.raw[:w].decode().split("\n")[:-1]
+        cap *= 2  # -1: the buffer is too small for these numbers
 
 
 def _merge_annotations(anno: List[Tuple[int, int]], gap: int) -> List[Tuple[int, int]]:

@@ -1,7 +1,8 @@
 """Stage 3 — hinge-aware greedy layout (reference `src/layout/hinging.cpp`).
 
 Port of `hinge_tpu/stages/layout.py`: the host logic is carried over
-unchanged, and the batched GetMatchingPosition queries run as the torch
+unchanged, less the stable weight order hinge_tpu falls back to without
+its native library, and the batched GetMatchingPosition queries run as the torch
 op `ops.classify.matching_position` on the stage's device.
 
 Pipeline:
@@ -120,7 +121,7 @@ def get_alignment(
         cand = _top_k(sub, k, device)
         pa = process_alignments(
             sub, cand, eff_start, eff_end, f.aln_threshold, f.theta, f.theta2,
-            trim=has_db, device=device,
+            trim=has_db,
         )
         fwd: Dict[int, List[int]] = {}
         bwd: Dict[int, List[int]] = {}
@@ -171,14 +172,9 @@ def get_alignment(
     # sort by weight desc: hinging.cpp:1068-1069 uses std::sort
     # (compare_overlap_weight), whose unstable tie permutation the
     # hgraph/edge files inherit — replicate it via the libstdc++ oracle
-    # (ops/pairs._libstdcxx_orders); stable descending otherwise
-    orders = _libstdcxx_orders()
+    # (ops/pairs._libstdcxx_orders)
+    _, sort_batch = _libstdcxx_orders()
     for d in (fwd, bwd):
-        if orders is None:
-            for i, lst in d.items():
-                lst.sort(key=lambda q: -int(pa.weight[q]))
-            continue
-        _, sort_batch = orders
         items = sorted(d.items())
         flat = np.array([q for _, lst in items for q in lst],
                         dtype=np.int64)

@@ -2,9 +2,9 @@
 
 Port of `hinge_tpu/stages/maximal.py` (reference `src/maximal/maximal.cpp`)
 with its imports swapped: the per-pair top-2 selection and the
-containment sweep are host code; the trim runs in the native library, or
-as the trim lattice on the stage's device when that library is missing.
-Outputs X.max and X.contained.txt; `read_mas` (copied verbatim) reads X.mas
+containment sweep are host code, the sweep and the trim in the native
+library (hinge_tpu's Python sweep and device trim for a missing one are
+not carried over).  Outputs X.max and X.contained.txt; `read_mas` (copied verbatim) reads X.mas
 back for the maximal and layout verbs of the CLI.
 """
 
@@ -34,15 +34,12 @@ def _top_k(sub: OverlapStore, k: int, device) -> np.ndarray:
 
 def _native_sweep(a_ids, b_ids, is_bcovera, active):
     """Containment sweep via native/sweeps.cpp::containment_sweep; mutates
-    `active` in place and returns the (read, containing) pairs, or None when
-    the toolchain is unavailable (caller falls back to the Python loop)."""
+    `active` in place and returns the (read, containing) pairs."""
     import ctypes
 
     from hinge_tpu_torch.native import get_lib
 
     lib = get_lib()
-    if lib is None or not hasattr(lib, "containment_sweep"):
-        return None
     a = np.ascontiguousarray(a_ids, np.int32)
     b = np.ascontiguousarray(b_ids, np.int32)
     f = np.ascontiguousarray(is_bcovera, np.uint8)
@@ -106,7 +103,7 @@ def run_maximal(
         cand = _top_k(sub, k, device)
         pa = process_alignments(
             sub, cand, eff_start, eff_end,
-            f.aln_threshold, f.theta, f.theta2, trim=has_db, device=device,
+            f.aln_threshold, f.theta, f.theta2, trim=has_db,
         )
 
         a_ids = sub.a_id[cand]
@@ -114,38 +111,10 @@ def run_maximal(
         is_bcovera = pa.match_type == CL.BCOVERA
 
         # sequential containment sweep in ascending read order (earlier
-        # contained reads can no longer contain): the native C pass, with
-        # the Python loop as the toolchain-free fallback
+        # contained reads can no longer contain), in one native C pass
         order = np.argsort(a_ids, kind="stable")
-        sweep = _native_sweep(
-            a_ids[order], b_ids[order], is_bcovera[order], active)
-        if sweep is not None:
-            contained_pairs.extend(sweep)
-        else:
-            last_i = -1
-            contained_flag = False
-            containing = -1
-            for q in order:
-                i = int(a_ids[q])
-                if i != last_i:
-                    if last_i >= 0 and contained_flag and active[last_i]:
-                        active[last_i] = False
-                        contained_pairs.append((last_i, containing))
-                    last_i = i
-                    contained_flag = False
-                    containing = -1
-                if not active[i]:
-                    continue
-                if is_bcovera[q]:
-                    containing_read = int(b_ids[q])
-                    # containing_read is recorded regardless of B activity,
-                    # the contained flag only counts active B
-                    containing = containing_read
-                    if active[containing_read]:
-                        contained_flag = True
-            if last_i >= 0 and contained_flag and active[last_i]:
-                active[last_i] = False
-                contained_pairs.append((last_i, containing))
+        contained_pairs.extend(_native_sweep(
+            a_ids[order], b_ids[order], is_bcovera[order], active))
 
         max_lines.extend(
             (r_begin + np.nonzero(active[r_begin : r_end + 1])[0]).tolist())

@@ -118,9 +118,10 @@ def test_add_types_matches_hinge_tpu():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_process_alignments_lattice_matches_native(noisy_sim, monkeypatch):
-    """Without the native trim, process_alignments runs the lattice on the
-    given device and returns what the native trim gives."""
+def test_process_alignments_lattice_matches_native(noisy_sim):
+    """On the same rows and masks, the trim lattice on the CPU
+    (pairs._lattice_trim) equals the native trim field by field, and
+    process_alignments returns what the native trim gives."""
     ov, rs = noisy_sim["overlaps"], noisy_sim["read_store"]
     rng = np.random.default_rng(8)
     rl = rs.length
@@ -128,15 +129,21 @@ def test_process_alignments_lattice_matches_native(noisy_sim, monkeypatch):
     ee = (rl - rng.random(len(rl)) * rl * 0.3).astype(np.int32)
     rows = np.arange(0, ov.n, 2)
     pov = _port(ov)
-    args = (pov, rows, es, ee, 500, 300, -300, True)
-    want = TP.process_alignments(*args, device="cpu")
-    if TP._native_trim(pov.take(rows[:1]), es[:1], ee[:1], es[:1], ee[:1],
-                       100) is None:
-        pytest.skip("native toolchain unavailable")
-    monkeypatch.setattr(TP, "_native_trim", lambda *a: None)
-    got = TP.process_alignments(*args, device="cpu")
-    for f in ("eff_a_match_start", "eff_a_match_end", "eff_b_match_start",
-              "eff_b_match_end", "match_type", "active", "weight", "length"):
-        g, w = getattr(got, f), getattr(want, f)
+    sub = pov.take(rows)
+    masks = (es[sub.a_id], ee[sub.a_id], es[sub.b_id], ee[sub.b_id])
+    native = TP._native_trim(sub, *masks, T.TRIM_GRID)
+    lattice = TP._lattice_trim(sub, *masks, "cpu")
+    for f, g, w in zip(("eams", "eame", "ebms", "ebme", "active"),
+                       lattice, native):
         assert g.dtype == w.dtype, f
         np.testing.assert_array_equal(g, w, err_msg=f)
+    assert len(set(native[4].tolist())) == 2
+    got = TP.process_alignments(pov, rows, es, ee, 500, 300, -300, True)
+    for f, w in zip(("eff_a_match_start", "eff_a_match_end",
+                     "eff_b_match_start", "eff_b_match_end"), native):
+        np.testing.assert_array_equal(getattr(got, f), w, err_msg=f)
+    too_short = (((native[3] - native[2]) < 500)
+                 | ((native[1] - native[0]) < 500))
+    np.testing.assert_array_equal(got.active, native[4] & ~too_short)
+    np.testing.assert_array_equal(
+        got.weight, (native[1] - native[0]) + (native[3] - native[2]))
